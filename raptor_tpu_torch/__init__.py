@@ -1,0 +1,25 @@
+"""raptor_tpu_torch: the PyTorch / CUDA port of raptor_tpu for NVIDIA Hopper.
+
+The package mirrors ``raptor_tpu``'s layout module for module, so that
+``raptor_tpu_torch/device/par.py`` sits beside ``raptor_tpu/device/par.py``.
+It imports torch, numpy and scipy, never jax and never ``raptor_tpu``:
+the host half (stencils, strength, CF splitting, interpolation, Galerkin
+products) is its own copy, cut down to what the port runs, and binds the
+repository's ``csrc/setup_kernels.cpp`` itself, so both packages build
+bit-identical hierarchies.
+
+- **Setup** (host): ``multilevel.par_multilevel.ParRugeStubenSolver``
+  (classical strength, RS/Falgout splitting, modified-classical
+  interpolation, native Galerkin products, dense coarse LU).
+- **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
+  packs every level into stacked-shard ``[S, ...]`` tensors
+  (``device.par.device_put_matrix``) and runs V-cycles with a Chebyshev
+  smoother. SpMVs in DIA and BDIA format launch the hand-written CUDA
+  kernels in ``csrc/`` (``device.kernels``); on CPU tensors the same
+  wrappers run the plain PyTorch versions in ``device.formats``.
+
+Device entry points take ``device=`` and default to ``"cuda"``; they raise
+when CUDA is asked for and absent.
+"""
+
+__version__ = "0.1.0"
