@@ -1,5 +1,6 @@
 """Device sparse formats: NumPy packers and their plain PyTorch SpMVs
-(copy of raptor_tpu.device.formats for the ELL, DIA and BDIA formats).
+(copy of raptor_tpu.device.formats for the ELL, DIA, BDIA, windowed-ELL,
+sorted-scatter transpose and BELL formats).
 
 Every function that takes tensors works on STACKED shards: a leading axis
 ``S`` over the partition's shards, so one call does what the JAX package
@@ -8,9 +9,14 @@ gather/scatter index type); BDIA lane ids stay int8, as the kernel reads
 them. Padding entries point at column 0 with value 0, so the linear ops
 need no masks.
 
-``dia_spmv`` and ``bdia_spmv`` are the plain versions of the hand-written
-CUDA kernels in ``raptor_tpu_torch/csrc``; ``device.kernels`` launches the
-kernels on CUDA tensors and calls these on CPU tensors only.
+``dia_spmv``, ``bdia_spmv``, ``wind_ell_spmv``, ``swellt_spmv_T`` and
+``bell_spmv`` are the plain versions of the hand-written CUDA kernels in
+``raptor_tpu_torch/csrc``; ``device.kernels`` launches the kernels on CUDA
+tensors and calls these on CPU tensors only. The packers are the JAX
+package's, byte for byte, TPU tiling constants included (the windowed-ELL
+tile of ``ba * 128`` rows and 8-aligned window starts, the swellt output
+window of ``SWELLT_AMAX`` rows): they fix the layout, which the CUDA
+kernels read as it is.
 """
 
 from __future__ import annotations
@@ -292,4 +298,340 @@ def bdia_spmv(d_offsets: Tuple[int, ...], idx: torch.Tensor,
     for p, d in enumerate(d_offsets):
         w = xp[:, padb + d:padb + d + A_pad]
         out = out + vals[:, p] * torch.gather(w, 2, idx[:, p])
+    return out.reshape(S, -1)[:, :rows_pad]
+
+
+# --- windowed ELL (transfer operators with narrow per-tile column spans) --------
+#
+# Per tile of ba*128 consecutive rows, x is read only inside a window of WR
+# 128-blocks starting at ws[tile]; the layout stores the window start and
+# window-relative column ids (int32, half the bytes of ELL's int64 columns).
+
+def _wind_slot_assign(q, rows, tid, row_nnz, W, T):
+    """Assign each CSR entry to an ELL slot so per-(tile, slot)
+    window-row bands stay narrow: slots are bucketed by the entry's
+    position in its tile's window-row range, made strictly increasing
+    within a row by a running max, then capped into [0, W-1]."""
+    k = np.arange(len(q)) - np.repeat(
+        np.cumsum(np.concatenate([[0], row_nnz[:-1]])), row_nnz)
+    tlo = np.full(T, np.iinfo(np.int64).max, dtype=np.int64)
+    thi = np.full(T, -1, dtype=np.int64)
+    np.minimum.at(tlo, tid, q)
+    np.maximum.at(thi, tid, q)
+    span = np.maximum(1, thi - tlo)
+    t_e = np.minimum(W - 1, (q - tlo[tid]) * W // span[tid])
+    # per-row running max via a row-offset segmented scan; BIG need only
+    # exceed the value range of (t_e - k)
+    BIG = np.int64(W + int(row_nnz.max(initial=1)) + 2)
+    assert int(rows[-1] if len(rows) else 0) < np.iinfo(np.int64).max // BIG
+    fwd = np.maximum.accumulate(t_e - k + rows * BIG) - rows * BIG
+    s = k + np.minimum(fwd, W - np.repeat(row_nnz, row_nnz))
+    return s
+
+
+def wind_ell_stats(a: CSRMatrix, rows_pad: int, ba: int):
+    """(W, WR, T, scan) for the windowed-ELL layout at tile size ba*128:
+    the ELL row width, the max per-tile window height in 128-blocks from
+    the 8-aligned window base (rounded up to a multiple of 8), the tile
+    count, and the (tile, slot, window-row) steps that the per-slot bounds
+    ``jlo``/``jhi`` of ``wind_ell_arrays`` span."""
+    row_nnz = np.diff(a.indptr)
+    W = int(row_nnz.max()) if a.nnz else 0
+    TR = ba * LANE
+    T = -(-_round_up(max(rows_pad, a.n_rows, 1), TR) // TR)
+    if a.nnz == 0:
+        return W, 8, T, 0
+    rows = np.repeat(np.arange(a.n_rows), row_nnz)
+    q = (a.indices // LANE).astype(np.int64)
+    tid = rows // TR
+    lo = np.full(T, np.iinfo(np.int64).max, dtype=np.int64)
+    hi = np.zeros(T, dtype=np.int64)
+    np.minimum.at(lo, tid, q)
+    np.maximum.at(hi, tid, q)
+    occ = lo <= hi
+    span = int(np.max(hi[occ] - (lo[occ] & ~7) + 1, initial=1))
+    pos = _wind_slot_assign(q, rows, tid, row_nnz, W, T)
+    flat = tid * W + pos
+    slo = np.full(T * W, np.iinfo(np.int64).max, dtype=np.int64)
+    shi = np.full(T * W, -1, dtype=np.int64)
+    np.minimum.at(slo, flat, q)
+    np.maximum.at(shi, flat, q)
+    act = shi >= 0
+    scan = int(np.sum(shi[act] - slo[act] + 1))
+    return W, int(_round_up(span, 8)), T, scan
+
+
+def wind_ell_arrays(a: CSRMatrix, rows_pad: int, W: int, WR: int, ba: int,
+                    cols_pad: int, dtype=np.float64):
+    """Pack CSR into windowed ELL.
+
+    Returns (ws [T] int32 8-aligned window starts in 128-blocks of the
+    source vector, rel [W, R] int32 window-relative cols = col - 128*ws,
+    vals [W, R], jlo [T, W] int32, jhi [T, W] int32), R = rows_pad rounded
+    up to ba*128. Padding entries have rel 0 / val 0. ws is clamped so
+    ws + WR never exceeds ``wind_src_height``. jlo/jhi are the TPU
+    kernel's per-(tile, slot) window-row scan bounds (half-open, empty
+    pairs [0, 0)); they are packed so the layouts compare byte for byte,
+    and the CUDA kernel does not read them."""
+    TR = ba * LANE
+    R = _round_up(max(rows_pad, a.n_rows, 1), TR)
+    T = R // TR
+    cap = max(0, wind_src_height(cols_pad, WR) - WR)
+    ws = np.zeros(T, dtype=np.int32)
+    rel = np.zeros((W, R), dtype=np.int32)
+    vals = np.zeros((W, R), dtype=dtype)
+    jlo = np.zeros((T, W), dtype=np.int32)
+    jhi = np.zeros((T, W), dtype=np.int32)
+    if a.nnz:
+        row_nnz = np.diff(a.indptr)
+        rows = np.repeat(np.arange(a.n_rows), row_nnz)
+        q = (a.indices // LANE).astype(np.int64)
+        tid = rows // TR
+        pos = _wind_slot_assign(q, rows, tid, row_nnz, W, T)
+        lo = np.full(T, np.iinfo(np.int64).max, dtype=np.int64)
+        np.minimum.at(lo, tid, q)
+        lo[lo == np.iinfo(np.int64).max] = 0
+        ws[:] = np.minimum(lo & ~7, cap)
+        r = a.indices - ws[tid].astype(np.int64) * LANE
+        assert r.min() >= 0 and r.max() < WR * LANE, \
+            (int(r.min()), int(r.max()), WR * LANE)
+        rel[pos, rows] = r
+        vals[pos, rows] = a.data
+        qrel = q - ws[tid]
+        flat = tid * W + pos
+        slo = np.full(T * W, np.iinfo(np.int64).max, dtype=np.int64)
+        shi = np.full(T * W, -1, dtype=np.int64)
+        np.minimum.at(slo, flat, qrel)
+        np.maximum.at(shi, flat, qrel)
+        act = shi >= 0
+        slo[~act] = 0
+        jlo[:] = slo.reshape(T, W)
+        jhi[:] = (shi + 1).reshape(T, W).clip(min=0)
+    return ws, rel, vals, jlo, jhi
+
+
+def wind_src_height(cols_pad: int, WR: int) -> int:
+    """Padded source-vector height (in 128-blocks) of the windowed layout:
+    the packer clamps ws with it, and the plain SpMV pads x to it."""
+    return _round_up(max(-(-cols_pad // LANE), WR), 8)
+
+
+def wind_ell_cols(ws: torch.Tensor, rel: torch.Tensor,
+                  ba: int) -> torch.Tensor:
+    """Absolute int64 ELL cols [S, W, R] from the windowed layout."""
+    S, W, R = rel.shape
+    T = R // (ba * LANE)
+    return (rel.reshape(S, W, T, ba * LANE).long()
+            + ws.long()[:, None, :, None] * LANE).reshape(S, W, R)
+
+
+def wind_ell_spmv(ws: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
+                  x: torch.Tensor, ba: int, WR: int,
+                  rows_pad: int) -> torch.Tensor:
+    """b[s, r] = sum_w vals[s,w,r] * x[s, ws[s, r // (ba*128)]*128 +
+    rel[s,w,r]], x zero-padded to ``wind_src_height``; returns
+    [S, rows_pad]."""
+    cols = wind_ell_cols(ws, rel, ba)
+    need = wind_src_height(x.shape[1], WR) * LANE
+    x2 = F.pad(x, (0, need - x.shape[1]))
+    return (vals * _take(x2, cols)).sum(dim=1)[:, :rows_pad]
+
+
+# --- sorted-scatter windowed transpose ("wellt", the restriction format) --------
+#
+# The FORWARD matrix B (rows = x domain, cols = targets; for a restriction
+# operator A = P^T this is P itself) is tiled in 128 source rows; each tile's
+# entries are sorted by target 128-row-block and compacted into slots of
+# 128 entries whose targets all fall in one aligned SWELLT_AMAX-row output
+# window. y = B^T x is then a scatter-add of vals * x over the entries.
+
+SWELLT_AMAX = 32        # output rows per slot window (multiple of 8)
+
+
+def swellt_height(n_out: int) -> int:
+    """Padded output height (in 128-blocks): every slot's window
+    [qb, qb + SWELLT_AMAX) stays in bounds."""
+    return _round_up(-(-max(n_out, 1) // LANE) + SWELLT_AMAX, 8)
+
+
+def _swellt_entries(a: CSRMatrix):
+    """Per-entry (tile, srcl, hc, lout, qb, key) in CSR order, the slot
+    sort order, and the window count. Shared by stats and pack."""
+    row_nnz = np.diff(a.indptr)
+    rows = np.repeat(np.arange(a.n_rows), row_nnz)
+    tid = rows >> 7
+    srcl = rows & 127
+    hc = (a.indices // LANE).astype(np.int64)
+    lout = a.indices % LANE
+    qb = (hc // SWELLT_AMAX) * SWELLT_AMAX
+    nq = int(qb.max()) // SWELLT_AMAX + 1 if a.nnz else 1
+    key = tid.astype(np.int64) * nq + qb // SWELLT_AMAX
+    order = np.argsort(key, kind="stable")
+    return (tid, srcl, hc, lout, qb, key, order, nq)
+
+
+def swellt_stats(a: CSRMatrix) -> Tuple[int, int]:
+    """(T, Kp): tile count and max slots per tile (no sort needed)."""
+    T = max(1, -(-a.n_rows // LANE))
+    if a.nnz == 0:
+        return T, 0
+    row_nnz = np.diff(a.indptr)
+    rows = np.repeat(np.arange(a.n_rows), row_nnz)
+    tid = rows >> 7
+    qi = (a.indices // (LANE * SWELLT_AMAX)).astype(np.int64)
+    nq = int(qi.max()) + 1
+    cnt = np.bincount(tid * nq + qi, minlength=T * nq)
+    slots = -(-cnt // LANE)
+    Kp = int(slots.reshape(T, nq).sum(axis=1).max())
+    return T, Kp
+
+
+def swellt_arrays(a: CSRMatrix, Kp: int, dtype=np.float64):
+    """Pack the forward matrix into the sorted-scatter layout.
+
+    Returns (meta [T, Kp*128] int32, vals [T, Kp*128], qb [T*Kp] int32).
+    meta packs srcl | qrel << 7 | lout << 12. Padding entries carry val 0 /
+    meta 0 / qb 0."""
+    T = max(1, -(-a.n_rows // LANE))
+    meta = np.zeros((T, Kp * LANE), dtype=np.int32)
+    vals = np.zeros((T, Kp * LANE), dtype=dtype)
+    qbs = np.zeros(T * Kp, dtype=np.int32)
+    if a.nnz == 0 or Kp == 0:
+        return meta, vals, qbs
+    tid, srcl, hc, lout, qb, key, order, nq = _swellt_entries(a)
+    tid, srcl, lout, qb, key = (v[order] for v in (tid, srcl, lout, qb,
+                                                   key))
+    qrel = (hc - (hc // SWELLT_AMAX) * SWELLT_AMAX)[order]
+    data = a.data[order]
+    n = len(key)
+    new = np.empty(n, dtype=bool)
+    new[0] = True
+    new[1:] = key[1:] != key[:-1]
+    gid = np.cumsum(new) - 1
+    gstart = np.flatnonzero(new)
+    p = np.arange(n) - gstart[gid]
+    sig = p // LANE                       # slot within its group
+    e = p % LANE                          # lane position within slot
+    gsize = np.diff(np.append(gstart, n))
+    gslots = -(-gsize // LANE)
+    gtile = tid[gstart]
+    cum = np.cumsum(gslots) - gslots
+    tfirst = np.flatnonzero(np.r_[True, gtile[1:] != gtile[:-1]])
+    tbase = np.repeat(cum[tfirst],
+                      np.diff(np.append(tfirst, len(gslots))))
+    k = (cum - tbase)[gid] + sig          # slot index within the tile
+    assert int(k.max()) < Kp, (int(k.max()), Kp)
+    meta[tid, k * LANE + e] = (srcl | (qrel << 7) | (lout << 12)) \
+        .astype(np.int32)
+    vals[tid, k * LANE + e] = data
+    qbs[tid * Kp + k] = qb
+    return meta, vals, qbs
+
+
+def _swellt_src_tgt(meta: torch.Tensor, qb: torch.Tensor):
+    """Per-entry source index (tile*128 + srcl) and target index
+    ((qb + qrel)*128 + lout), both int64 [S, T, Kp*128]."""
+    S, T, KL = meta.shape
+    m = meta.long()
+    srcl, qrel, lout = m & 127, (m >> 7) & (SWELLT_AMAX - 1), (m >> 12) & 127
+    src = torch.arange(T, device=meta.device)[None, :, None] * LANE + srcl
+    qbe = qb.long().reshape(S, T, KL // LANE).repeat_interleave(LANE, dim=2)
+    return src, (qbe + qrel) * LANE + lout
+
+
+def swellt_spmv_T(meta: torch.Tensor, vals: torch.Tensor, qb: torch.Tensor,
+                  x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """y = B^T x from the sorted-scatter layout: y[s, tgt] += vals * x[s,
+    src] over every entry; returns [S, n_out]."""
+    S, T, _ = meta.shape
+    src, tgt = _swellt_src_tgt(meta, qb)
+    xp = F.pad(x, (0, T * LANE - x.shape[1]))
+    c = vals * _take(xp, src)
+    H = swellt_height(n_out)
+    y = torch.zeros((S, H * LANE), dtype=vals.dtype, device=vals.device)
+    y.scatter_add_(1, tgt.reshape(S, -1), c.reshape(S, -1))
+    return y[:, :n_out]
+
+
+def swellt_spmv(meta: torch.Tensor, vals: torch.Tensor, qb: torch.Tensor,
+                x: torch.Tensor, cols_pad: int) -> torch.Tensor:
+    """Forward apply y = B x from the sorted-scatter layout (the spmv_T of
+    a wellt-packed restriction operator); returns [S, cols_pad]."""
+    S, T, _ = meta.shape
+    src, tgt = _swellt_src_tgt(meta, qb)
+    H = swellt_height(x.shape[1])
+    xp = F.pad(x, (0, H * LANE - x.shape[1]))
+    c = vals * _take(xp, tgt)
+    y = torch.zeros((S, T * LANE), dtype=vals.dtype, device=vals.device)
+    y.scatter_add_(1, src.reshape(S, -1), c.reshape(S, -1))
+    return y[:, :cols_pad]
+
+
+# --- BELL (block-ELL of BDIA plane slots) ------------------------------------------
+#
+# For each target 128-row block, up to W_b slots, each holding ONE source
+# 128-column block with per-row lane ids (int8) and values: the SpMV streams
+# only occupied blocks where full BDIA planes stream every block.
+
+def bell_stats(a: CSRMatrix):
+    """(W_b, n_slots) for the BELL layout: per-target-128-block count of
+    (block-offset, occurrence) plane slots; W_b is the max over blocks."""
+    if a.nnz == 0:
+        return 0, 0
+    rows, d, slot = _bdia_d_slot(a)
+    blk = (rows // LANE).astype(np.int64)
+    c128 = max(1, (a.n_cols + LANE - 1) // LANE)
+    span = np.int64(int(slot.max()) + 2)
+    key = (blk * np.int64(2 * c128 + 3) + (d + c128)) * span + slot
+    uk = np.unique(key)
+    u_blk = uk // (np.int64(2 * c128 + 3) * span)
+    a128 = max(1, (a.n_rows + LANE - 1) // LANE)
+    counts = np.bincount(u_blk.astype(np.int64), minlength=a128)
+    return int(counts.max()), int(len(uk))
+
+
+def bell_arrays(a: CSRMatrix, a128: int, w_b: int, dtype=np.float64):
+    """Pack CSR into BELL. Returns (src [W_b, a128] int32 source block ids
+    (pad: 0, vals 0), idx [W_b, a128, 128] int8 lane ids,
+    vals [W_b, a128, 128])."""
+    src = np.zeros((w_b, a128), dtype=np.int32)
+    idx = np.zeros((w_b, a128, LANE), dtype=np.int8)
+    vals = np.zeros((w_b, a128, LANE), dtype=dtype)
+    if a.nnz == 0 or w_b == 0:
+        return src, idx, vals
+    rows, d, slot = _bdia_d_slot(a)
+    blk = (rows // LANE).astype(np.int64)
+    srcb = (a.indices // LANE).astype(np.int64)
+    lane = (a.indices % LANE).astype(np.int64)
+    sub = (rows % LANE).astype(np.int64)
+    c128 = max(1, (a.n_cols + LANE - 1) // LANE)
+    span = np.int64(int(slot.max()) + 2)
+    key = (blk * np.int64(2 * c128 + 3) + (d + c128)) * span + slot
+    uk, first, inv = np.unique(key, return_index=True,
+                               return_inverse=True)
+    u_blk = blk[first]
+    u_src = srcb[first]
+    counts = np.bincount(u_blk, minlength=a128)
+    starts = np.cumsum(counts) - counts
+    # uk is sorted block-major, so slot rank within its block:
+    w_of = np.arange(len(uk)) - starts[u_blk]
+    src[w_of, u_blk] = u_src
+    w_e = w_of[inv]
+    idx[w_e, blk, sub] = lane
+    vals[w_e, blk, sub] = a.data
+    return src, idx, vals
+
+
+def bell_spmv(src: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              x: torch.Tensor, rows_pad: int) -> torch.Tensor:
+    """out[s, a*128 + l] = sum_w vals[s,w,a,l] * x[s, src[s,w,a]*128 +
+    idx[s,w,a,l]], one slot layer at a time; returns [S, rows_pad]."""
+    S, W, A128 = src.shape
+    C128 = -(-x.shape[1] // LANE)
+    x2 = F.pad(x, (0, C128 * LANE - x.shape[1])).reshape(S, C128, LANE)
+    out = torch.zeros((S, A128, LANE), dtype=x.dtype, device=x.device)
+    for w in range(W):
+        blocks = src[:, w].long()[:, :, None].expand(-1, -1, LANE)
+        wrow = torch.gather(x2, 1, blocks)               # [S, A128, 128]
+        out = out + vals[:, w] * torch.gather(wrow, 2, idx[:, w].long())
     return out.reshape(S, -1)[:, :rows_pad]

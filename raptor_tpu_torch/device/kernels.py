@@ -1,6 +1,6 @@
 """Hand-written CUDA kernels of the solve path, and their wrappers.
 
-Two kernels carry the SpMVs of the flagship 2-D solve, one per format:
+Five kernels carry the SpMVs of the solve, one per device format:
 
 - ``dia_spmv`` (``csrc/dia_spmv.cu``) replaces
   ``raptor_tpu/device/pallas_kernels.py:dia_spmv_pallas``: stencil operators
@@ -11,6 +11,18 @@ Two kernels carry the SpMVs of the flagship 2-D solve, one per format:
   ``pallas_kernels.py:bdia_spmv_pallas``: coarse Galerkin operators and the
   embedded P / P^T. Bound: memory, about
   ``P * A_pad * 128 * (itemsize + 1) + 2 * R * itemsize`` bytes per shard.
+- ``wind_ell_spmv`` (``csrc/wind_ell_spmv.cu``) replaces
+  ``pallas_kernels.py:wind_ell_spmv_pallas``: the 3-D transfer operators
+  and ELL-headed coarse operators. Bound: memory, about
+  ``W * R * (4 + itemsize)`` bytes per shard.
+- ``swellt_spmv_T`` (``csrc/swellt_spmv_T.cu``) replaces
+  ``pallas_kernels.py:swellt_spmv_T_pallas``: restriction operators in the
+  sorted-scatter layout, by atomic adds. Bound: memory, about
+  ``T * Kp * 128 * itemsize + 4 * nnz`` bytes per shard (the metadata of
+  padding entries is never read).
+- ``bell_spmv`` (``csrc/bell_spmv.cu``) replaces
+  ``pallas_kernels.py:bell_spmv_pallas``: block-ELL of plane slots. Bound:
+  memory, about ``W * A128 * 128 * (1 + itemsize)`` bytes per shard.
 
 Each is written in CUDA C++ for ``sm_90a``, templated on float and double,
 built with ``nvcc`` into a shared library with a plain C interface at first
@@ -20,9 +32,10 @@ nothing; the wrapper allocates the output, checks device, dtype, shape and
 contiguity, raises if the launch reports an error, and counts its launches
 in ``LAUNCHES``.
 
-On CPU tensors a wrapper runs the kernel's plain PyTorch version
-(``device.formats.dia_spmv`` / ``bdia_spmv``). On a CUDA tensor it launches
-the kernel or raises; it never falls back to the plain version.
+When every tensor argument lies on the CPU, a wrapper runs the kernel's
+plain PyTorch version (``device.formats``, same name). Otherwise it
+launches the kernel on CUDA tensors or raises (for a mix of devices too);
+it never falls back to the plain version.
 """
 
 from __future__ import annotations
@@ -43,7 +56,9 @@ from raptor_tpu_torch.device import formats
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = {"dia_spmv": CSRC / "dia_spmv.cu", "bdia_spmv": CSRC / "bdia_spmv.cu"}
+SOURCES = {name: CSRC / f"{name}.cu"
+           for name in ("dia_spmv", "bdia_spmv", "wind_ell_spmv",
+                        "swellt_spmv_T", "bell_spmv")}
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -61,6 +76,12 @@ _ARGTYPES = {
     "dia_spmv": [_P, _P, _P, _P, _I, _I, _L, _L, _P],
     # idx, vals, x, d_offsets, out, S, P, A_pad, rows, C, stream
     "bdia_spmv": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P],
+    # ws, rel, vals, x, out, S, W, n_tiles, R, tile_rows, rows, C, stream
+    "wind_ell_spmv": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
+    # meta, vals, qb, x, out, S, n_tiles, KL, n_out, C, stream
+    "swellt_spmv_T": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
+    # src, idx, vals, x, out, S, W, A128, rows, C, stream
+    "bell_spmv": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P],
 }
 
 
@@ -146,6 +167,13 @@ def _launch(name: str, x: torch.Tensor, *args) -> None:
     LAUNCHES[name] += 1
 
 
+def _all_cpu(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on the CPU: only then does a wrapper run
+    the plain version; any other mix goes to ``_check_cuda``, which raises
+    for it."""
+    return all(t.device.type == "cpu" for t in tensors)
+
+
 def _check_cuda(name: str, x: torch.Tensor, tensors: dict) -> None:
     if x.device.type != "cuda":
         raise ValueError(f"{name}: x lies on {x.device}; the kernel takes "
@@ -169,7 +197,7 @@ def dia_spmv(offsets: Tuple[int, ...], offsets_dev: torch.Tensor,
     """``b[s, i] = sum_k vals[s, k, i] * x[s, i + offsets[k]]`` with x zero
     outside [0, C). ``vals [S, K, R]``, ``x [S, C]``; ``offsets_dev`` is
     ``offsets`` as an int32 tensor beside ``vals``. Returns ``[S, R]``."""
-    if x.device.type == "cpu":
+    if _all_cpu(offsets_dev, vals, x):
         return formats.dia_spmv(offsets, vals, x, pad)
     _check_cuda("dia_spmv", x, {"vals": vals, "x": x,
                                 "offsets": offsets_dev})
@@ -193,7 +221,7 @@ def bdia_spmv(d_offsets: Tuple[int, ...], d_offsets_dev: torch.Tensor,
     idx[s,p,a,l]]`` with x zero outside [0, C). ``idx`` int8 and ``vals``
     ``[S, P, A_pad, 128]``, ``x [S, C]``; ``d_offsets_dev`` is
     ``d_offsets`` as an int32 tensor. Returns ``[S, rows_pad]``."""
-    if x.device.type == "cpu":
+    if _all_cpu(d_offsets_dev, idx, vals, x):
         return formats.bdia_spmv(d_offsets, idx, vals, x, padb, rows_pad)
     _check_cuda("bdia_spmv", x, {"idx": idx, "vals": vals, "x": x,
                                  "d_offsets": d_offsets_dev})
@@ -212,4 +240,89 @@ def bdia_spmv(d_offsets: Tuple[int, ...], d_offsets_dev: torch.Tensor,
     _launch("bdia_spmv", x, idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
             d_offsets_dev.data_ptr(), out.data_ptr(), S, P, A_pad, rows_pad,
             x.shape[1])
+    return out
+
+
+def _int32(name: str, arg: str, t: torch.Tensor, shape) -> None:
+    if t.dtype != torch.int32 or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {arg} {tuple(t.shape)} {t.dtype}, want "
+                         f"{tuple(shape)} int32")
+
+
+def wind_ell_spmv(ws: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
+                  x: torch.Tensor, ba: int, WR: int,
+                  rows_pad: int) -> torch.Tensor:
+    """``out[s, r] = sum_w vals[s,w,r] * x[s, ws[s, r // (ba*128)]*128 +
+    rel[s,w,r]]`` with x zero outside [0, C). ``ws [S, T]`` and
+    ``rel [S, W, R]`` int32, ``vals [S, W, R]`` with ``R = T * ba * 128``,
+    ``x [S, C]``. ``WR`` only sizes the plain version's padded copy of x.
+    Returns ``[S, rows_pad]``."""
+    if _all_cpu(ws, rel, vals, x):
+        return formats.wind_ell_spmv(ws, rel, vals, x, ba, WR, rows_pad)
+    _check_cuda("wind_ell_spmv", x, {"ws": ws, "rel": rel, "vals": vals,
+                                     "x": x})
+    S, W, R = vals.shape
+    tile_rows = ba * formats.LANE
+    if (vals.dtype != x.dtype or x.dim() != 2 or x.shape[0] != S
+            or R % tile_rows or not 0 < rows_pad <= R):
+        raise ValueError(f"wind_ell_spmv: vals {tuple(vals.shape)} "
+                         f"{vals.dtype}, x {tuple(x.shape)} {x.dtype}, "
+                         f"tile {tile_rows}, rows_pad {rows_pad}")
+    _int32("wind_ell_spmv", "rel", rel, vals.shape)
+    _int32("wind_ell_spmv", "ws", ws, (S, R // tile_rows))
+    out = torch.empty((S, rows_pad), dtype=x.dtype, device=x.device)
+    _launch("wind_ell_spmv", x, ws.data_ptr(), rel.data_ptr(),
+            vals.data_ptr(), x.data_ptr(), out.data_ptr(), S, W,
+            R // tile_rows, R, tile_rows, rows_pad, x.shape[1])
+    return out
+
+
+def swellt_spmv_T(meta: torch.Tensor, vals: torch.Tensor, qb: torch.Tensor,
+                  x: torch.Tensor, n_out: int) -> torch.Tensor:
+    """``y = B^T x`` from the sorted-scatter layout: ``y[s, (qb[s, t*Kp +
+    e//128] + qrel)*128 + lout] += vals[s,t,e] * x[s, t*128 + srcl]`` with
+    ``meta = srcl | qrel << 7 | lout << 12``. ``meta`` int32 and ``vals``
+    ``[S, T, Kp*128]``, ``qb [S, T*Kp]`` int32, ``x [S, C]``. Returns
+    ``[S, n_out]``; the float sum order varies between runs (atomics)."""
+    if _all_cpu(meta, vals, qb, x):
+        return formats.swellt_spmv_T(meta, vals, qb, x, n_out)
+    _check_cuda("swellt_spmv_T", x, {"meta": meta, "vals": vals, "qb": qb,
+                                     "x": x})
+    S, T, KL = vals.shape
+    if (vals.dtype != x.dtype or x.dim() != 2 or x.shape[0] != S
+            or KL % formats.LANE or n_out <= 0):
+        raise ValueError(f"swellt_spmv_T: vals {tuple(vals.shape)} "
+                         f"{vals.dtype}, x {tuple(x.shape)} {x.dtype}, "
+                         f"n_out {n_out}")
+    _int32("swellt_spmv_T", "meta", meta, vals.shape)
+    _int32("swellt_spmv_T", "qb", qb, (S, T * KL // formats.LANE))
+    out = torch.zeros((S, n_out), dtype=x.dtype, device=x.device)
+    _launch("swellt_spmv_T", x, meta.data_ptr(), vals.data_ptr(),
+            qb.data_ptr(), x.data_ptr(), out.data_ptr(), S, T, KL, n_out,
+            x.shape[1])
+    return out
+
+
+def bell_spmv(src: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
+              x: torch.Tensor, rows_pad: int) -> torch.Tensor:
+    """``out[s, a*128 + l] = sum_w vals[s,w,a,l] * x[s, src[s,w,a]*128 +
+    idx[s,w,a,l]]`` with x zero outside [0, C). ``src [S, W, A128]`` int32,
+    ``idx`` int8 and ``vals [S, W, A128, 128]``, ``x [S, C]``. Returns
+    ``[S, rows_pad]``."""
+    if _all_cpu(src, idx, vals, x):
+        return formats.bell_spmv(src, idx, vals, x, rows_pad)
+    _check_cuda("bell_spmv", x, {"src": src, "idx": idx, "vals": vals,
+                                 "x": x})
+    S, W, A128, L = vals.shape
+    if (vals.dtype != x.dtype or idx.dtype != torch.int8
+            or idx.shape != vals.shape or L != formats.LANE
+            or x.dim() != 2 or x.shape[0] != S
+            or not 0 < rows_pad <= A128 * L):
+        raise ValueError(f"bell_spmv: idx {tuple(idx.shape)} {idx.dtype}, "
+                         f"vals {tuple(vals.shape)} {vals.dtype}, x "
+                         f"{tuple(x.shape)} {x.dtype}, rows_pad {rows_pad}")
+    _int32("bell_spmv", "src", src, (S, W, A128))
+    out = torch.empty((S, rows_pad), dtype=x.dtype, device=x.device)
+    _launch("bell_spmv", x, src.data_ptr(), idx.data_ptr(), vals.data_ptr(),
+            x.data_ptr(), out.data_ptr(), S, W, A128, rows_pad, x.shape[1])
     return out

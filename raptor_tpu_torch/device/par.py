@@ -1,5 +1,6 @@
 """Stacked-shard device matrix and halo-exchange SpMV (copy of
-raptor_tpu.device.par for the ELL, DIA and BDIA formats).
+raptor_tpu.device.par for the ELL, DIA, BDIA, windowed-ELL, sorted-scatter
+transpose and BELL formats).
 
 Each shard owns a padded row block split into an on_proc block (local
 columns) and a boundary-compacted off_proc block (condensed halo columns).
@@ -19,9 +20,15 @@ val 0), so the linear ops need no masks.
 The on_proc format is chosen per matrix by the JAX package's structural
 rules: DIA when the offset union has at most ``MAX_DIA_OFFSETS`` entries,
 else BDIA when the kept planes carry at least 60% of the entries with
-block offsets |d| <= 256, else ELL. DIA and BDIA SpMVs go through the
-hand-written CUDA kernels (``device.kernels``). The TPU-calibrated
-windowed/BELL transfer formats belong to the port's 3-D slice.
+block offsets |d| <= 256, else ELL. A matrix headed for ELL is then
+ranked against the transfer formats that its shape admits (JAX's
+structural gates: windowed ELL ``well`` for R >= 2048, the sorted-scatter
+transpose ``wellt`` for restriction-shaped blocks with C >= 2048, BELL for
+prolongation-shaped blocks) by the bytes one apply streams in the port's
+layout, and the smallest wins (``_transfer_bytes``). The JAX package ranks
+them by nanosecond constants fitted on a TPU, which the port does not
+carry. A forced format is never re-ranked. Every on-block SpMV but ELL's
+goes through a hand-written CUDA kernel (``device.kernels``).
 """
 
 from __future__ import annotations
@@ -31,24 +38,28 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from raptor_tpu_torch.comm.plan import CommPlan, build_comm_plan
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device import kernels
 from raptor_tpu_torch.device.formats import (
-    LANE, _round_up, _scatter_add, _take, bdia_arrays, bdia_plane_counts,
-    bdia_split_rest, dia_arrays, dia_detect, dia_spmv_T, ell_arrays,
-    ell_boundary_arrays, ell_spmv, ell_spmv_T, off_spmv, off_spmv_T,
-    select_planes)
+    LANE, SWELLT_AMAX, _round_up, _scatter_add, _take, bdia_arrays,
+    bdia_plane_counts, bdia_split_rest, bell_arrays, bell_stats, dia_arrays,
+    dia_detect, dia_spmv_T, ell_arrays, ell_boundary_arrays, ell_spmv,
+    ell_spmv_T, off_spmv, off_spmv_T, select_planes, swellt_arrays,
+    swellt_spmv, swellt_stats, wind_ell_arrays, wind_ell_cols,
+    wind_ell_stats)
 
 MAX_DIA_OFFSETS = 64
 MAX_BDIA_PLANES = 1024
 # cap on the bytes of the BDIA planes of one matrix (the JAX package's
 # default RAPTOR_TPU_BDIA_MEM); it bounds the plane count of huge levels
 BDIA_MEM_CAP = 3 << 30
-# formats whose kernels come with the port's 3-D slice
-_LATER_FORMATS = ("well", "wellt", "bell")
+FORMATS = ("ell", "well", "wellt", "bell")   # the forceable formats
+WELL_BA = 8            # windowed-ELL tile: ba * 128 rows (the JAX layout)
+TRANSFER_MIN = 2048    # well needs R, wellt C, at least this (JAX's gates)
 
 
 def resolve_device(device) -> torch.device:
@@ -66,8 +77,10 @@ def resolve_device(device) -> torch.device:
 class DeviceParCSR:
     """Stacked-over-shards device matrix (leading axis = shard)."""
 
-    on_cols: torch.Tensor    # [S, W_on, R] int64 (ELL; dummy otherwise)
-    on_vals: torch.Tensor    # [S, W_on, R]
+    on_cols: torch.Tensor    # [S, W_on, R] int64 (ELL; dummy otherwise);
+    #                          well: [S, W, R_w] int32 window-relative cols;
+    #                          wellt: [S, T, Kp*128] int32 meta
+    on_vals: torch.Tensor    # [S, W_on, R] (well/wellt: as on_cols)
     off_rows: torch.Tensor   # [S, B] int64 boundary rows (pad = rows_pad)
     off_cols: torch.Tensor   # [S, W_off, B] int64 halo col ids
     off_vals: torch.Tensor   # [S, W_off, B]
@@ -76,11 +89,18 @@ class DeviceParCSR:
     bd_idx: torch.Tensor     # [S, P, A_pad, 128] int8 lane ids
     bd_vals: torch.Tensor    # [S, P, A_pad, 128]
     bd_off: torch.Tensor     # [P] int32 bd_offsets, for the kernel
+    bl_src: torch.Tensor     # [S, W_b, A128] int32 BELL source block ids
+    bl_idx: torch.Tensor     # [S, W_b, A128, 128] int8 lane ids
+    bl_vals: torch.Tensor    # [S, W_b, A128, 128]
     rest_rows: torch.Tensor  # [S, Br] int64 (pad = fmt_R)
     rest_cols: torch.Tensor  # [S, Wr, Br] int64 local col ids
     rest_vals: torch.Tensor  # [S, Wr, Br]
     emb_idx: torch.Tensor    # [S, fmt_R/128] (cols) / [S, R/128] (rows)
     emb_mask: torch.Tensor   # [S, fmt_R/128] 1.0 on anchored blocks (cols)
+    wl_ws: torch.Tensor      # well: [S, T] int32 8-aligned window starts;
+    #                          wellt: [S, T*Kp] int32 per-slot window bases
+    wl_jlo: torch.Tensor     # well: [S, T, W] int32 TPU scan bounds (packed
+    wl_jhi: torch.Tensor     # for parity, unread); otherwise [S, 1, 1|W]
     send_idx: torch.Tensor   # [S, S, Q] int64 local col ids
     send_mask: torch.Tensor  # [S, S, Q]
     halo_src: torch.Tensor   # [S, H] int64 flat recv slot
@@ -95,7 +115,9 @@ class DeviceParCSR:
     bd_offsets: tuple        # plane block offsets (P,)
     bd_padb: int             # max |block offset|
     bd_ba: int               # the JAX package's VMEM block; sets A_pad only
-    on_format: str           # "ell" | "dia" | "bdia"
+    wl_wr: int               # windowed-ELL window height (128-blocks)
+    wl_ba: int               # windowed-ELL tile (128-row blocks)
+    on_format: str           # "ell"|"dia"|"bdia"|"well"|"wellt"|"bell"
     embed_kind: str          # "none" | "cols" | "rows"
     on_rows_pad: int         # row space of the packed on block
     has_t: bool              # transpose path available
@@ -184,6 +206,47 @@ def _max_row_nnz(blocks) -> int:
                for b in blocks)
 
 
+def _transfer_bytes(fmt: str, itemsize: int, *dims: int) -> int:
+    """Bytes of the packed arrays that one apply streams in the port's
+    layout (x and the output cost every format about alike and are left
+    out): ``ell`` (W, R): int64 cols and values; ``well`` (W, R_w, T):
+    int32 window-relative cols, values, window starts; ``wellt`` (T, Kp):
+    int32 meta, values, slot window bases; ``bell`` (W_b, A128): int8 lane
+    ids, values, int32 source block ids."""
+    b = itemsize
+    if fmt == "ell":
+        W, R = dims
+        return W * R * (8 + b)
+    if fmt == "well":
+        W, R_w, T = dims
+        return W * R_w * (4 + b) + 4 * T
+    if fmt == "wellt":
+        T, Kp = dims
+        return T * Kp * LANE * (4 + b) + 4 * T * Kp
+    W_b, A128 = dims
+    return W_b * A128 * LANE * (1 + b) + 4 * W_b * A128
+
+
+def packed_bytes(M: DeviceParCSR) -> int:
+    """Bytes of the packed on-block arrays of ``M``, over all shards: for
+    the formats the rule ranks, ``_transfer_bytes`` of the packed shape;
+    for DIA its diagonals, for BDIA its planes and the ELL rest."""
+    S, b = M.n_shards, M.on_vals.element_size()
+    if M.on_format == "ell":
+        return S * _transfer_bytes("ell", b, *M.on_vals.shape[1:])
+    if M.on_format == "well":
+        return S * _transfer_bytes("well", b, *M.on_vals.shape[1:],
+                                   M.wl_ws.shape[1])
+    if M.on_format == "wellt":
+        T, KL = M.on_vals.shape[1:]
+        return S * _transfer_bytes("wellt", b, T, KL // LANE)
+    if M.on_format == "bell":
+        return S * _transfer_bytes("bell", b, *M.bl_vals.shape[1:3])
+    arrays = ((M.dia_vals,) if M.on_format == "dia" else
+              (M.bd_idx, M.bd_vals, M.rest_cols, M.rest_vals))
+    return sum(t.numel() * t.element_size() for t in arrays)
+
+
 def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
                       lane_pad: int = 1,
                       force_format: Optional[str] = None,
@@ -194,17 +257,15 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
 
     ``embed`` ("cols" for P, "rows" for P^T) moves a transfer operator's
     coarse axis to fine-aligned 128-block anchors, so the block becomes
-    near-banded and formats as DIA/BDIA; the SpMV then adds one row-block
-    gather. ``force_format="ell"`` skips DIA/BDIA. ``lane_pad`` rounds the
-    padded row/col/halo sizes (128 on CUDA, as the TPU does, makes the
-    same format picks as the TPU)."""
-    if force_format in _LATER_FORMATS:
-        raise NotImplementedError(
-            f"force_format={force_format!r}: the windowed-ELL, "
-            f"sorted-scatter and BELL transfer formats come with the "
-            f"port's 3-D slice (kernels wind_ell/swellt/bell)")
-    if force_format not in (None, "ell"):
-        raise ValueError(f"force_format={force_format!r}")
+    near-banded and formats as DIA/BDIA/BELL; the SpMV then adds one
+    row-block gather. ``force_format`` ("ell", "well", "wellt", "bell")
+    skips the choice: "well" and "wellt" pack the block without the
+    embedding, a forced "bell" packs it with the embedding. ``lane_pad``
+    rounds the padded row/col/halo sizes (128 on CUDA, as the TPU does,
+    makes the TPU's DIA/BDIA picks)."""
+    if force_format not in (None,) + FORMATS:
+        raise ValueError(f"force_format={force_format!r}; the port packs "
+                         f"{FORMATS} or chooses itself (None)")
     dev = resolve_device(device)
     part = a.partition
     S = part.n_shards
@@ -259,16 +320,15 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
             new_blocks.append(_remap_rows(bo, anchor, C))
         fmt_blocks = new_blocks
 
-    # format: DIA when the union of all shards' offset sets is small (one
-    # offset list for every shard), else BDIA when its planes carry most
-    # entries, else ELL
-    shard_offs = [dia_detect(blk, MAX_DIA_OFFSETS) for blk in fmt_blocks]
-    union = (np.unique(np.concatenate(shard_offs))
-             if all(o is not None for o in shard_offs) else None)
-    A128 = -(-fmt_R // 128)
+    # structural format: DIA when the union of all shards' offset sets is
+    # small (one offset list for every shard), else BDIA when its planes
+    # carry most entries, else ELL
     fmt = force_format
     bd_spec = []
     if fmt is None:
+        shard_offs = [dia_detect(blk, MAX_DIA_OFFSETS) for blk in fmt_blocks]
+        union = (np.unique(np.concatenate(shard_offs))
+                 if all(o is not None for o in shard_offs) else None)
         if union is not None and len(union) <= MAX_DIA_OFFSETS:
             fmt = "dia"
         else:
@@ -277,6 +337,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
                 planes, counts = bdia_plane_counts(blk)
                 for p, c in zip(planes, counts):
                     merged[p] = merged.get(p, 0) + int(c)
+            A128 = -(-fmt_R // 128)
             per_plane = max(1, A128 * 128 * (itemsize + 1))
             max_planes = min(MAX_BDIA_PLANES,
                              max(8, BDIA_MEM_CAP // per_plane))
@@ -287,11 +348,70 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
             fmt = ("bdia" if bd_spec and pad_ok and kept_nnz >= 0.6 * total
                    else "ell")
     if fmt == "ell":
-        # the embedding only pays off through DIA/BDIA
+        # the embedding only pays off through DIA/BDIA/BELL
         embed_kind, fmt_R = "none", R
         fmt_blocks = [blk.on_proc for blk in shards]
         emb_idx = np.zeros((S, 1), dtype=np.int32)
         emb_mask = np.zeros((S, 1), dtype=np.float64)
+    A128 = -(-fmt_R // 128)
+
+    # transfer formats: a matrix headed for ELL competes with those its
+    # shape admits, by the bytes one apply streams; a forced one is packed
+    wl_ba, wl_wr, wl_T = WELL_BA, 0, 1
+    sw_Kp = bl_Wb = wW = 0
+    if force_format == "bell":
+        bl_Wb = max(bell_stats(blk)[0] for blk in fmt_blocks)
+    elif force_format in ("well", "wellt") or (force_format is None
+                                               and fmt == "ell"):
+        auto = force_format is None
+        cand = {}
+        if auto:
+            cand["ell"] = _transfer_bytes(
+                "ell", itemsize,
+                max(1, _max_row_nnz([s.on_proc for s in shards])), R)
+        if force_format == "well" or (auto and R >= TRANSFER_MIN):
+            stats = [wind_ell_stats(blk.on_proc, R, wl_ba) for blk in shards]
+            wW = max(st[0] for st in stats)
+            wWR = max(st[1] for st in stats)
+            T_w = _round_up(R, wl_ba * LANE) // (wl_ba * LANE)
+            if wW > 0 or not auto:
+                cand["well"] = _transfer_bytes("well", itemsize, wW,
+                                               T_w * wl_ba * LANE, T_w)
+        if force_format == "wellt" or (
+                auto and part.global_num_rows < part.global_num_cols
+                and C >= TRANSFER_MIN):
+            statsT = [swellt_stats(blk.on_proc.transpose())
+                      for blk in shards]
+            sw_T = max(t for t, _ in statsT)
+            sw_Kp = max(k for _, k in statsT)
+            if sw_Kp > 0 or not auto:
+                cand["wellt"] = _transfer_bytes("wellt", itemsize, sw_T,
+                                                sw_Kp)
+        if auto and part.global_num_rows > part.global_num_cols:
+            W_b = max(bell_stats(blk)[0] for blk in fmt_blocks)
+            if W_b > 0 and A128 > 2:
+                cand["bell"] = _transfer_bytes("bell", itemsize, W_b, A128)
+        fmt = min(cand, key=lambda f: (cand[f], f))
+        if fmt == "well":
+            wl_wr, wl_T = max(wWR, 8), T_w
+        elif fmt == "wellt":
+            wl_wr, wl_T = SWELLT_AMAX, sw_T
+        elif fmt == "bell":
+            bl_Wb = W_b
+        if fmt in ("well", "wellt"):
+            # well/wellt pack the ORIGINAL blocks; drop any embedding
+            embed_kind = "none"
+            emb_idx = np.zeros((S, 1), dtype=np.int32)
+            emb_mask = np.zeros((S, 1), dtype=np.float64)
+
+    if fmt == "bell":
+        bl_src = np.zeros((S, bl_Wb, A128), dtype=np.int32)
+        bl_idx = np.zeros((S, bl_Wb, A128, 128), dtype=np.int8)
+        bl_vals = np.zeros((S, bl_Wb, A128, 128), dtype=npdt)
+    else:
+        bl_src = np.zeros((S, 0, 1), dtype=np.int32)
+        bl_idx = np.zeros((S, 0, 1, 128), dtype=np.int8)
+        bl_vals = np.zeros((S, 0, 1, 128), dtype=npdt)
 
     bd_offsets, bd_padb, bd_ba = (), 1, 0
     rest_shards = fmt_blocks
@@ -301,11 +421,11 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         Pn = len(bd_spec)
         # the JAX package's TPU block size: it only rounds A_pad here,
         # kept so that the packed planes compare byte for byte
-        for cand in (256, 128, 64, 32, 16, 8):
-            need = (Pn * cand * 128 * (itemsize + 1)
-                    + (cand + 2 * bd_padb) * 128 * itemsize) * 2
+        for cand_ba in (256, 128, 64, 32, 16, 8):
+            need = (Pn * cand_ba * 128 * (itemsize + 1)
+                    + (cand_ba + 2 * bd_padb) * 128 * itemsize) * 2
             if need <= 32 * 1024 * 1024:
-                bd_ba = cand
+                bd_ba = cand_ba
                 break
         A_pad = _round_up(A128, bd_ba) if bd_ba else A128
         bd_idx = np.zeros((S, Pn, A_pad, 128), dtype=np.int8)
@@ -323,6 +443,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     rest_cols = np.zeros((S, Wr, Br), dtype=np.int32)
     rest_vals = np.zeros((S, Wr, Br), dtype=npdt)
 
+    dia_offsets, dia_pad = (0,), 1
     if fmt == "dia":
         if len(union) == 0:
             union = np.zeros(1, dtype=np.int64)
@@ -332,18 +453,39 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         # serves the transpose path
         W_on = (max(1, _max_row_nnz([s.on_proc for s in shards]))
                 if embed_kind != "none" else 1)
+        on_shape = (S, W_on, R)
         dia_vals = np.zeros((S, len(union), fmt_R), dtype=npdt)
+    elif fmt == "well":
+        # window-relative cols over the tiled row space
+        fmt_R = wl_T * wl_ba * LANE
+        on_shape = (S, max(1, wW), fmt_R)
+        dia_vals = np.zeros((S, 1, 1), dtype=npdt)
+    elif fmt == "wellt":
+        # sorted-scatter layout of the transposed block over the tiled
+        # SOURCE (col) space
+        fmt_R = wl_T * LANE
+        on_shape = (S, wl_T, max(1, sw_Kp) * LANE)
+        dia_vals = np.zeros((S, 1, 1), dtype=npdt)
     else:
-        dia_offsets, dia_pad = (0,), 1
-        if fmt == "bdia" and not need_transpose:
+        if fmt in ("bdia", "bell") and not need_transpose:
             W_on = 1   # the ELL copy only serves spmv_T
         else:
             W_on = max(1, _max_row_nnz([s.on_proc for s in shards]))
+        on_shape = (S, W_on, R)
         dia_vals = np.zeros((S, 1, fmt_R), dtype=npdt)
-    on_cols = np.zeros((S, W_on, R), dtype=np.int32)
-    on_vals = np.zeros((S, W_on, R), dtype=npdt)
-    pack_ell = (fmt == "ell" or (fmt == "bdia" and need_transpose)
+    on_cols = np.zeros(on_shape, dtype=np.int32)
+    on_vals = np.zeros(on_shape, dtype=npdt)
+    pack_ell = ((fmt == "ell" or (fmt in ("bdia", "bell") and need_transpose))
                 or (fmt == "dia" and embed_kind != "none"))
+    if fmt == "wellt":
+        wl_ws = np.zeros((S, wl_T * max(1, sw_Kp)), dtype=np.int32)
+        wl_jlo = np.zeros((S, 1, 1), dtype=np.int32)
+    else:
+        wl_ws = np.zeros((S, wl_T), dtype=np.int32)
+        wl_jlo = np.zeros((S, wl_T if fmt == "well" else 1,
+                           on_shape[1] if fmt == "well" else 1),
+                          dtype=np.int32)
+    wl_jhi = np.zeros_like(wl_jlo)
 
     off_rows = np.full((S, B), R, dtype=np.int32)
     off_cols = np.zeros((S, W_off, B), dtype=np.int32)
@@ -353,9 +495,22 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         if fmt == "dia":
             dia_vals[s] = dia_arrays(fmt_blocks[s], union, fmt_R,
                                      dtype=npdt)
+        elif fmt == "well":
+            (wl_ws[s], on_cols[s], on_vals[s], wl_jlo[s],
+             wl_jhi[s]) = wind_ell_arrays(blk.on_proc, R, on_shape[1], wl_wr,
+                                          wl_ba, C, dtype=npdt)
+        elif fmt == "wellt" and sw_Kp > 0:
+            # the TRANSPOSED block: source rows = x domain, targets = rows
+            meta, vals, qb = swellt_arrays(blk.on_proc.transpose(), sw_Kp,
+                                           dtype=npdt)
+            on_cols[s, :len(meta)], on_vals[s, :len(meta)] = meta, vals
+            wl_ws[s, :len(qb)] = qb
         if pack_ell:
             on_cols[s], on_vals[s] = ell_arrays(blk.on_proc, R, W_on,
                                                 dtype=npdt)
+        if fmt == "bell":
+            bl_src[s], bl_idx[s], bl_vals[s] = bell_arrays(
+                fmt_blocks[s], A128, bl_Wb, dtype=npdt)
         if fmt == "bdia":
             bd_idx[s], bd_vals[s] = bdia_arrays(fmt_blocks[s], bd_spec,
                                                 bd_idx.shape[2], dtype=npdt)
@@ -373,16 +528,20 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
 
     lng = torch.int64
     return DeviceParCSR(
-        on_cols=put(on_cols, lng), on_vals=put(on_vals),
+        # the well/wellt kernels read their int32 layouts as they are
+        on_cols=put(on_cols, None if fmt in ("well", "wellt") else lng),
+        on_vals=put(on_vals),
         off_rows=put(off_rows, lng), off_cols=put(off_cols, lng),
         off_vals=put(off_vals),
         dia_vals=put(dia_vals),
         dia_off=put(np.asarray(dia_offsets, dtype=np.int32)),
         bd_idx=put(bd_idx), bd_vals=put(bd_vals),
         bd_off=put(np.asarray(bd_offsets, dtype=np.int32)),
+        bl_src=put(bl_src), bl_idx=put(bl_idx), bl_vals=put(bl_vals),
         rest_rows=put(rest_rows, lng), rest_cols=put(rest_cols, lng),
         rest_vals=put(rest_vals),
         emb_idx=put(emb_idx, lng), emb_mask=put(emb_mask.astype(npdt)),
+        wl_ws=put(wl_ws), wl_jlo=put(wl_jlo), wl_jhi=put(wl_jhi),
         send_idx=put(plan.send_idx, lng),
         send_mask=put(plan.send_mask.astype(npdt)),
         halo_src=put(plan.halo_src, lng),
@@ -392,8 +551,9 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         rows_pad=R, cols_pad=C, halo_pad=plan.halo_pad,
         dia_pad=dia_pad, dia_offsets=dia_offsets,
         bd_offsets=bd_offsets, bd_padb=bd_padb, bd_ba=bd_ba,
+        wl_wr=wl_wr, wl_ba=wl_ba,
         on_format=fmt, embed_kind=embed_kind, on_rows_pad=fmt_R,
-        has_t=not (fmt == "bdia" and not need_transpose),
+        has_t=not (fmt in ("bdia", "bell") and not need_transpose),
         global_num_rows=part.global_num_rows,
         global_num_cols=part.global_num_cols,
     )
@@ -451,9 +611,19 @@ def on_spmv(A: DeviceParCSR, x: torch.Tensor) -> torch.Tensor:
         idx = A.emb_idx[:, :, None].expand(-1, -1, LANE)
         x = (torch.gather(x2, 1, idx) * A.emb_mask[:, :, None]).reshape(S,
                                                                         -1)
+    if A.on_format == "well":
+        return kernels.wind_ell_spmv(A.wl_ws, A.on_cols, A.on_vals,
+                                     x.contiguous(), A.wl_ba, A.wl_wr,
+                                     A.rows_pad)
+    if A.on_format == "wellt":
+        return kernels.swellt_spmv_T(A.on_cols, A.on_vals, A.wl_ws,
+                                     x.contiguous(), A.rows_pad)
     if A.on_format == "dia":
         out = kernels.dia_spmv(A.dia_offsets, A.dia_off, A.dia_vals,
                                x.contiguous(), A.dia_pad)
+    elif A.on_format == "bell":
+        out = kernels.bell_spmv(A.bl_src, A.bl_idx, A.bl_vals,
+                                x.contiguous(), A.on_rows_pad)
     elif A.on_format == "bdia":
         out = kernels.bdia_spmv(A.bd_offsets, A.bd_off, A.bd_idx, A.bd_vals,
                                 x.contiguous(), A.bd_padb, A.on_rows_pad)
@@ -474,6 +644,14 @@ def on_spmv_T(A: DeviceParCSR, x: torch.Tensor) -> torch.Tensor:
     if A.on_format == "dia" and A.embed_kind == "none":
         return dia_spmv_T(A.dia_offsets, A.dia_vals, x, A.cols_pad,
                           A.dia_pad)
+    if A.on_format == "well":
+        # absolute cols over the tiled row space
+        cols = wind_ell_cols(A.wl_ws, A.on_cols, A.wl_ba)
+        xp = F.pad(x, (0, A.on_vals.shape[2] - x.shape[1]))
+        return ell_spmv_T(cols, A.on_vals, xp, A.cols_pad)
+    if A.on_format == "wellt":
+        # the packed arrays ARE the transpose: spmv_T is a forward gather
+        return swellt_spmv(A.on_cols, A.on_vals, A.wl_ws, x, A.cols_pad)
     if not A.has_t:
         raise ValueError(
             "matrix was packed with need_transpose=False; rebuild with "

@@ -68,7 +68,9 @@ class DeviceHierarchy:
 
     ``device`` defaults to CUDA and raises when CUDA is absent;
     ``lane_pad`` defaults to 128 on CUDA (the TPU's padding, which makes
-    the TPU's DIA/BDIA/embedding picks) and 1 elsewhere."""
+    the TPU's DIA/BDIA/embedding picks) and 1 elsewhere. Operators headed
+    for ELL take the transfer format that streams the fewest bytes
+    (``device.par``)."""
 
     def __init__(self, ml: ParMultilevel, dtype=torch.float64,
                  lane_pad: int = None, device="cuda"):
@@ -117,6 +119,19 @@ class DeviceHierarchy:
         self.rows_pad = self.levels[0].A.rows_pad
         self._fine_A = ml.levels[0].A
         self._dA64 = None
+
+    def format_summary(self) -> List[str]:
+        """One line per level: its rows and the packed format of A, P and
+        P^T ("format/embedding" for the transfer operators)."""
+        lines = []
+        for i, lvl in enumerate(self.levels):
+            line = (f"level {i:2d}: {lvl.A.global_num_rows:9d} rows  "
+                    f"A {lvl.A.on_format:5s}")
+            if lvl.P is not None:
+                line += (f"  P {lvl.P.on_format}/{lvl.P.embed_kind:5s}"
+                         f"  Pt {lvl.Pt.on_format}/{lvl.Pt.embed_kind}")
+            lines.append(line)
+        return lines
 
     # --- the cycle --------------------------------------------------------------
     def coarse_solve(self, row_mask: torch.Tensor,

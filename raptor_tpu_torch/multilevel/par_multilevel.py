@@ -1,6 +1,6 @@
 """Host AMG setup (copy of raptor_tpu.multilevel.par_multilevel:
-Ruge-Stuben with modified-classical interpolation and the host Galerkin
-product).
+Ruge-Stuben with RS/PMIS/HMIS coarsening, modified-classical or extended+i
+interpolation, and the host Galerkin product).
 
 ``ParMultilevel`` (multilevel/par_multilevel.hpp:69-661) holds the knobs
 and the levels; ``ParRugeStubenSolver``
@@ -22,7 +22,8 @@ from raptor_tpu_torch.core.types import (
     CoarsenType, InterpType, RelaxType, StrengthType)
 from raptor_tpu_torch.multilevel.level import Level
 from raptor_tpu_torch.ruge_stuben import cf_splitting as cf
-from raptor_tpu_torch.ruge_stuben.interpolation import par_interpolation
+from raptor_tpu_torch.ruge_stuben.interpolation import (
+    filter_interp, par_interpolation)
 from raptor_tpu_torch.ruge_stuben.strength import strength
 from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
 
@@ -94,41 +95,59 @@ class ParMultilevel:
 
 
 class ParRugeStubenSolver(ParMultilevel):
-    """ruge_stuben/par_ruge_stuben_solver.hpp:12-177, for RS coarsening
-    (RS below level 3, Falgout from there) with classical strength and
-    modified-classical interpolation, single-variable. The other
-    coarsenings and interpolations belong to a later slice of the port."""
+    """ruge_stuben/par_ruge_stuben_solver.hpp:12-177, single-variable with
+    classical strength: RS (RS below level 3, Falgout from there), PMIS or
+    HMIS coarsening, and modified-classical or extended+i interpolation.
+    Extended+i is filtered with ``interp_filter`` under every coarsening
+    (par_ruge_stuben_solver.hpp:121). CLJP and Falgout as the coarsening,
+    direct interpolation and symmetric strength belong to a later slice of
+    the port."""
+
+    COARSENINGS = (CoarsenType.RS, CoarsenType.PMIS, CoarsenType.HMIS)
+    INTERPOLATIONS = {InterpType.ModClassical: "mod_classical",
+                      InterpType.Extended: "extended"}
 
     def __init__(self, strong_threshold: float = 0.0,
                  coarsen_type: CoarsenType = CoarsenType.RS,
                  interp_type: InterpType = InterpType.ModClassical,
                  strength_type: StrengthType = StrengthType.Classical,
                  relax_type: RelaxType = RelaxType.SOR):
-        if coarsen_type != CoarsenType.RS:
+        if coarsen_type not in self.COARSENINGS:
             raise NotImplementedError(
-                f"{coarsen_type}: the port runs RS coarsening; "
-                f"CLJP/Falgout/PMIS/HMIS come with the 3-D slice")
-        if interp_type != InterpType.ModClassical:
+                f"{coarsen_type}: the port runs RS, PMIS and HMIS "
+                f"coarsening; CLJP and Falgout come with a later slice")
+        if interp_type not in self.INTERPOLATIONS:
             raise NotImplementedError(
-                f"{interp_type}: the port runs modified-classical "
-                f"interpolation; direct and extended+i come with the 3-D "
-                f"slice")
+                f"{interp_type}: the port runs modified-classical and "
+                f"extended+i interpolation; direct comes with a later slice")
         if strength_type != StrengthType.Classical:
             raise NotImplementedError(
                 f"{strength_type}: the port runs classical strength")
         super().__init__(strong_threshold, relax_type)
+        self.coarsen_type = coarsen_type
+        self.interp_type = interp_type
+        self.interp_filter = 0.3  # applied to extended+i only
 
     def extend_hierarchy(self) -> None:
         """par_ruge_stuben_solver.hpp:56-177: S -> split -> P -> RAP."""
         level_ctr = len(self.levels) - 1
         a = self.levels[level_ctr].A
         s = strength(a, self.strong_threshold)
-        # RS: split_rs below level 3, then Falgout (:76-86)
-        if level_ctr < 3:
+        w = self.weights[:a.global_num_rows]
+        if self.coarsen_type == CoarsenType.PMIS:
+            states = cf.split_pmis(s, w)
+        elif self.coarsen_type == CoarsenType.HMIS:
+            states = cf.split_hmis(s, w)
+        elif level_ctr < 3:
+            # RS: split_rs below level 3, then Falgout (:76-86)
             states = cf.split_rs_entry(s)
         else:
-            states = cf.split_falgout(s, self.weights[:a.global_num_rows])
-        p = par_interpolation(a, s, states)
+            states = cf.split_falgout(s, w)
+        kind = self.INTERPOLATIONS[self.interp_type]
+        p = par_interpolation(a, s, states, kind)
+        if kind == "extended":
+            p = ParCSRMatrix(filter_interp(p.global_csr, self.interp_filter),
+                             p.partition)
         self.levels[level_ctr].P = p
         _, ac = self._galerkin(a, p)
         self.levels.append(Level(A=ac))

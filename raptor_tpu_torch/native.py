@@ -7,7 +7,8 @@ compiles it, read-only, with the same flags as ``raptor_tpu.native``
 build directory, and binds only the entry points the port's setup calls:
 classical strength, the split pattern, the RS passes, the CLJP loop,
 mark-strong, modified-classical interpolation, glibc ``rand()``, the
-stencil assembly and the two SpGEMMs. Both packages then build
+stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
+interpolation and its pattern bound. Both packages then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
 """
@@ -70,10 +71,15 @@ def load():
         lib.rs_first_pass.argtypes = [_i64] + [I64] * 6
         lib.rs_second_pass.argtypes = [_i64] + [I64] * 3
         lib.cljp_main_loop.argtypes = [_i64] * 2 + [I64] * 5 + [F64]
+        lib.pmis_main_loop.argtypes = [_i64] + [I64] * 5 + [F64]
         lib.mark_strong.argtypes = [_i64] + [I64] * 4 + [I8]
-        lib.mod_classical_interp.argtypes = [_i64, I64, I64, F64, I8, I64,
-                                             I64, _i64, I64, I64, F64]
-        lib.mod_classical_interp.restype = _i64
+        interp_args = [_i64, I64, I64, F64, I8, I64, I64, _i64, I64, I64,
+                       F64]
+        for fn in (lib.mod_classical_interp, lib.extended_interp):
+            fn.argtypes = interp_args
+            fn.restype = _i64
+        lib.interp_pattern_bound.argtypes = [_i64, I64, I64, I8, I64]
+        lib.interp_pattern_bound.restype = _i64
         lib.glibc_rand_doubles.argtypes = [_i64, _i64, F64]
         lib.spgemm_compute.argtypes = [_i64, _i64, I64, I64, F64, I64, I64,
                                        F64, ctypes.c_double, I64]
@@ -93,7 +99,7 @@ def load():
         lib.finalize_interp.argtypes = [_i64, _i64, I64, I64, F64, I64,
                                         _i64, I64]
         for fn in (lib.rs_first_pass, lib.rs_second_pass,
-                   lib.cljp_main_loop, lib.mark_strong,
+                   lib.cljp_main_loop, lib.pmis_main_loop, lib.mark_strong,
                    lib.glibc_rand_doubles, lib.spgemm_fetch,
                    lib.finalize_interp):
             fn.restype = None
@@ -152,25 +158,62 @@ def mark_strong(a_indptr, a_indices, s_indptr, s_indices, n):
     return strong
 
 
-def mod_classical_interp(a_indptr, a_indices, a_data, strong, states):
-    """Row-ordered (rows, cols, vals) triplets of single-variable
-    modified-classical P (par_interpolation.cpp:1012-1400)."""
+def pmis_main_loop(indptr, indices, col_ptr, col_indices, states,
+                   weights):
+    """PMIS independent-set loop (cf_splitting.cpp:578-665), in place on
+    ``states`` (int64) and ``weights`` (float64)."""
     lib = load()
+    indptr, indices = _c(indptr), _c(indices)
+    col_ptr, col_indices = _c(col_ptr), _c(col_indices)
+    lib.pmis_main_loop(len(states), _p(indptr, I64), _p(indices, I64),
+                       _p(col_ptr, I64), _p(col_indices, I64),
+                       _p(states, I64), _p(weights, F64))
+
+
+def _interp(fn, a_indptr, a_indices, a_data, strong, states, bound):
+    """Run one single-variable interpolation kernel into triplet buffers of
+    ``bound`` entries; returns the row-ordered (rows, cols, vals)."""
     a_indptr, a_indices = _c(a_indptr), _c(a_indices)
     a_data = _f(a_data)
     strong = np.ascontiguousarray(strong, dtype=np.int8)
     states = _c(states)
     variables, num_variables = np.zeros(1, dtype=np.int64), 1
-    bound = len(a_indices) + len(a_indptr)
     rows = np.empty(bound, dtype=np.int64)
     cols = np.empty(bound, dtype=np.int64)
     vals = np.empty(bound, dtype=np.float64)
-    nnz = lib.mod_classical_interp(
-        len(a_indptr) - 1, _p(a_indptr, I64), _p(a_indices, I64),
-        _p(a_data, F64), _p(strong, I8), _p(states, I64),
-        _p(variables, I64), num_variables, _p(rows, I64), _p(cols, I64),
-        _p(vals, F64))
+    nnz = fn(len(a_indptr) - 1, _p(a_indptr, I64), _p(a_indices, I64),
+             _p(a_data, F64), _p(strong, I8), _p(states, I64),
+             _p(variables, I64), num_variables, _p(rows, I64),
+             _p(cols, I64), _p(vals, F64))
     return rows[:nnz], cols[:nnz], vals[:nnz]
+
+
+def mod_classical_interp(a_indptr, a_indices, a_data, strong, states):
+    """Row-ordered (rows, cols, vals) triplets of single-variable
+    modified-classical P (par_interpolation.cpp:1012-1400)."""
+    return _interp(load().mod_classical_interp, a_indptr, a_indices, a_data,
+                   strong, states, len(a_indices) + len(a_indptr))
+
+
+def extended_interp(a_indptr, a_indices, a_data, strong, states, bound):
+    """Row-ordered (rows, cols, vals) triplets of single-variable
+    extended+i P with the production semantics
+    (par_interpolation.cpp:301-1010); columns come unsorted within a row.
+    ``bound`` is ``interp_pattern_bound`` of the same inputs."""
+    return _interp(load().extended_interp, a_indptr, a_indices, a_data,
+                   strong, states, bound)
+
+
+def interp_pattern_bound(a_indptr, a_indices, strong, states) -> int:
+    """Entry-count bound of the extended+i distance-2 pattern (one C pass
+    over A's entries; ``strong`` int8, ``states`` CF states)."""
+    lib = load()
+    a_indptr, a_indices = _c(a_indptr), _c(a_indices)
+    strong = np.ascontiguousarray(strong, dtype=np.int8)
+    states = _c(states)
+    return int(lib.interp_pattern_bound(
+        len(a_indptr) - 1, _p(a_indptr, I64), _p(a_indices, I64),
+        _p(strong, I8), _p(states, I64)))
 
 
 def finalize_interp(n, rows, cols, vals, col_map, do_sort):

@@ -5,8 +5,9 @@ flagship 64 x 64 anisotropic hierarchy.
 
 JAX runs as its own tests run it: on the 8-device CPU mesh of
 tests/conftest.py, where its DIA/BDIA SpMVs go through their XLA versions.
-``RAPTOR_TPU_WELL=0`` keeps JAX to the structural format rules the port
-has (its windowed-ELL rescue belongs to the port's 3-D slice).
+``RAPTOR_TPU_WELL=0`` keeps JAX to its structural format rules: its
+transfer-format rescue ranks by TPU timing constants where the port ranks
+by bytes (tests/test_torch_transfer.py compares the transfer formats).
 """
 
 import numpy as np
@@ -200,7 +201,8 @@ def test_spmv_matches_host_product():
 
 
 def test_later_formats_raise():
+    """A format the port does not pack is refused, not ignored."""
     m = to_port(_host_matrix(1, 0, "P"))
-    for f in ("well", "wellt", "bell"):
-        with pytest.raises(NotImplementedError, match="3-D slice"):
+    for f in ("dia", "bdia", "csr", "WELL"):
+        with pytest.raises(ValueError, match="force_format"):
             tpar.device_put_matrix(m, force_format=f, device="cpu")

@@ -26,7 +26,8 @@ from raptor_tpu_torch.device import relax as trelax  # noqa: E402
 from raptor_tpu_torch.multilevel.device_hierarchy import (  # noqa: E402
     DeviceHierarchy)
 
-from _torch_parity import jax_hierarchy, port_hierarchy, to_port  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    jax_hierarchy, port_hierarchy, rhs, to_port)
 
 N = 64
 # the solves run on 32 x 32 (5 levels), which keeps the JAX compiles short
@@ -36,13 +37,6 @@ N_SOLVE = 32
 @pytest.fixture(autouse=True)
 def _structural_formats(monkeypatch):
     monkeypatch.setenv("RAPTOR_TPU_WELL", "0")
-
-
-def _rhs(ml):
-    """b = A x_true with x_true from a seeded generator."""
-    a = ml.levels[0].A
-    x_true = np.random.default_rng(0).standard_normal(a.global_num_rows)
-    return a.global_csr.to_scipy() @ x_true
 
 
 @pytest.mark.parametrize("S", [1, 8])
@@ -90,7 +84,7 @@ def test_solve_histories_match_jax(S, lane_pad):
         [lv.A.on_format for lv in jdh.levels]
     assert [lv.P.on_format for lv in tdh.levels[:-1]] == \
         [lv.P.on_format for lv in jdh.levels[:-1]]
-    b = _rhs(jml)
+    b = rhs(jml)
     jr = jdh.solve(jdh.vector(np.zeros_like(b)), jdh.vector(b))
     tr = tdh.solve(tdh.vector(np.zeros_like(b)), tdh.vector(b))
     assert tr.n_iters == int(jr.n_iters) > 3
@@ -109,7 +103,7 @@ def test_solve_iterations_independent_of_shards():
         tdh = DeviceHierarchy(port_hierarchy(jax_hierarchy(N_SOLVE, S)),
                               lane_pad=128, device="cpu")
         tdh.solve_tol = 1e-9
-        b = _rhs(jax_hierarchy(N_SOLVE, S))
+        b = rhs(jax_hierarchy(N_SOLVE, S))
         iters.append(tdh.solve(tdh.vector(np.zeros_like(b)),
                                tdh.vector(b)).n_iters)
     assert iters[0] == iters[1]
@@ -123,7 +117,7 @@ def test_solve_mixed_matches_jax(S):
     jdh = JaxDeviceHierarchy(jml, jpar.make_mesh(S), dtype=jnp.float32)
     tdh = DeviceHierarchy(port_hierarchy(jml), dtype=torch.float32,
                           lane_pad=1, device="cpu")
-    b = _rhs(jml)
+    b = rhs(jml)
     jx, jhist = jdh.solve_mixed(np.zeros_like(b), b, tol=1e-8)
     tx, thist = tdh.solve_mixed(np.zeros_like(b), b, tol=1e-8)
     assert jhist[-1] <= 1e-8 and thist[-1] <= 1e-8

@@ -53,6 +53,55 @@ def _bdia_case(rng, S, P, A_pad, rows, C, dtype, device):
     return d, offs, idx, vals, x, padb, rows
 
 
+def _well_case(rng, S, W, T, ba, rows, C, dtype, device):
+    """Random windowed-ELL layout with window starts up to the packer's
+    clamp, so windows reach past the end of x into the padded source
+    height (zeros in the plain version, the kernel's bounds check)."""
+    R = T * ba * 128
+    WR = 8
+    cap = formats.wind_src_height(C, WR) - WR
+    ws = rng.integers(0, cap + 1, (S, T)).astype(np.int32) & ~7
+    rel = rng.integers(0, WR * 128, (S, W, R)).astype(np.int32)
+    vals = rng.standard_normal((S, W, R))
+    vals[rng.random((S, W, R)) < 0.2] = 0.0            # padding slots
+    x = rng.standard_normal((S, C))
+    return (torch.from_numpy(ws).to(device), torch.from_numpy(rel).to(device),
+            torch.from_numpy(vals).to(device, dtype),
+            torch.from_numpy(x).to(device, dtype), ba, WR, rows)
+
+
+def _swellt_case(rng, S, T, Kp, n_out, C, dtype, device):
+    """Random sorted-scatter layout with zero-valued padding entries and
+    slot windows that reach past n_out (those targets are dropped)."""
+    KL = Kp * 128
+    h = -(-n_out // 128)
+    srcl = rng.integers(0, 128, (S, T, KL))
+    qrel = rng.integers(0, 32, (S, T, KL))
+    lout = rng.integers(0, 128, (S, T, KL))
+    meta = (srcl | qrel << 7 | lout << 12).astype(np.int32)
+    vals = rng.standard_normal((S, T, KL))
+    pad = rng.random((S, T, KL)) < 0.3
+    vals[pad], meta[pad] = 0.0, 0
+    qb = (rng.integers(0, h + 1, (S, T * Kp)) & ~7).astype(np.int32)
+    x = rng.standard_normal((S, C))
+    return (torch.from_numpy(meta).to(device),
+            torch.from_numpy(vals).to(device, dtype),
+            torch.from_numpy(qb).to(device),
+            torch.from_numpy(x).to(device, dtype), n_out)
+
+
+def _bell_case(rng, S, W, A128, rows, C, dtype, device):
+    """Random BELL layout; the last source block of x is ragged when C is
+    not a multiple of 128."""
+    src = rng.integers(0, -(-C // 128), (S, W, A128)).astype(np.int32)
+    idx = rng.integers(0, 128, (S, W, A128, 128), dtype=np.int8)
+    vals = rng.standard_normal((S, W, A128, 128))
+    x = rng.standard_normal((S, C))
+    return (torch.from_numpy(src).to(device), torch.from_numpy(idx).to(device),
+            torch.from_numpy(vals).to(device, dtype),
+            torch.from_numpy(x).to(device, dtype), rows)
+
+
 def _close(got, ref, dtype):
     """max |got - ref| <= TOL * max |ref| (exact when ref is all zeros)."""
     return float((got - ref).abs().max()) <= TOL[dtype] * float(
@@ -71,7 +120,45 @@ def test_wrappers_take_plain_version_on_cpu():
     assert torch.equal(
         kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows),
         formats.bdia_spmv(d, idx, vals, x, padb, rows))
-    assert kernels.LAUNCHES == {"dia_spmv": 0, "bdia_spmv": 0}
+    args = _well_case(rng, 2, 3, 2, 8, 2000, 900, torch.float64, "cpu")
+    assert torch.equal(kernels.wind_ell_spmv(*args),
+                       formats.wind_ell_spmv(*args))
+    args = _swellt_case(rng, 2, 3, 2, 500, 350, torch.float64, "cpu")
+    assert torch.equal(kernels.swellt_spmv_T(*args),
+                       formats.swellt_spmv_T(*args))
+    args = _bell_case(rng, 2, 4, 3, 300, 350, torch.float64, "cpu")
+    assert torch.equal(kernels.bell_spmv(*args), formats.bell_spmv(*args))
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.SOURCES, 0)
+
+
+def test_wrappers_refuse_cpu_x_with_other_operands():
+    """Only all-CPU arguments take the plain version: a CPU x beside an
+    operand on another device is refused before anything runs."""
+    rng = np.random.default_rng(4)
+    away = "meta"   # a device other than the CPU, present on every build
+    offsets, offs, vals, x, pad = _dia_case(rng, 1, 3, 40, 40,
+                                            torch.float64, "cpu")
+    cases = [(kernels.dia_spmv, (offsets, offs, vals.to(away), x, pad))]
+    d, offs, idx, vals, x, padb, rows = _bdia_case(
+        rng, 1, 2, 1, 100, 100, torch.float64, "cpu")
+    cases.append((kernels.bdia_spmv,
+                   (d, offs, idx.to(away), vals, x, padb, rows)))
+    ws, rel, vals, x, ba, WR, rows = _well_case(rng, 1, 2, 1, 8, 900, 300,
+                                                torch.float64, "cpu")
+    cases.append((kernels.wind_ell_spmv,
+                  (ws.to(away), rel, vals, x, ba, WR, rows)))
+    meta, vals, qb, x, n_out = _swellt_case(rng, 1, 2, 1, 200, 200,
+                                            torch.float64, "cpu")
+    cases.append((kernels.swellt_spmv_T, (meta, vals, qb.to(away), x,
+                                          n_out)))
+    src, idx, vals, x, rows = _bell_case(rng, 1, 2, 2, 200, 200,
+                                         torch.float64, "cpu")
+    cases.append((kernels.bell_spmv, (src, idx, vals.to(away), x, rows)))
+    kernels.reset_launches()
+    for fn, args in cases:
+        with pytest.raises(ValueError, match="x lies on cpu"):
+            fn(*args)
+    assert kernels.LAUNCHES == dict.fromkeys(kernels.SOURCES, 0)
 
 
 def test_plain_dia_matches_dense_product():
@@ -134,6 +221,61 @@ def test_bdia_kernel_matches_plain(cuda, dtype, S, P, A_pad, rows, C):
     assert _close(got, ref, dtype)
 
 
+def _launch_once(name, fn, args):
+    before = kernels.LAUNCHES[name]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES[name] == before + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,W,T,rows,C", [(1, 11, 64, 65000, 8000),
+                                          (3, 83, 5, 4500, 70000),
+                                          (2, 1, 1, 1, 5)])
+def test_wind_ell_kernel_matches_plain(cuda, dtype, S, W, T, rows, C):
+    """Ragged row tails (rows < T*1024), several shards, padding slots and
+    an x shorter than the padded source height."""
+    rng = np.random.default_rng(S * 1000 + W)
+    args = _well_case(rng, S, W, T, 8, rows, C, dtype, cuda)
+    got = _launch_once("wind_ell_spmv", kernels.wind_ell_spmv, args)
+    ref = formats.wind_ell_spmv(*args)
+    assert got.shape == ref.shape == (S, rows)
+    assert _close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,T,Kp,n_out,C", [(1, 2000, 8, 170000, 256000),
+                                            (3, 7, 3, 900, 800),
+                                            (2, 1, 1, 1, 1)])
+def test_swellt_kernel_matches_plain(cuda, dtype, S, T, Kp, n_out, C):
+    """Atomic adds: the float32 sum order varies between runs, which the
+    relative tolerance of max |ref| covers; padding entries (val 0) and
+    targets past n_out drop out."""
+    rng = np.random.default_rng(S * 1000 + Kp)
+    args = _swellt_case(rng, S, T, Kp, n_out, C, dtype, cuda)
+    got = _launch_once("swellt_spmv_T", kernels.swellt_spmv_T, args)
+    ref = formats.swellt_spmv_T(*args)
+    assert got.shape == ref.shape == (S, n_out)
+    assert _close(got, ref, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("S,W,A128,rows,C", [(1, 24, 2048, 262000, 40000),
+                                             (3, 5, 9, 1100, 700),
+                                             (2, 1, 1, 100, 77)])
+def test_bell_kernel_matches_plain(cuda, dtype, S, W, A128, rows, C):
+    rng = np.random.default_rng(S * 1000 + W)
+    args = _bell_case(rng, S, W, A128, rows, C, dtype, cuda)
+    got = _launch_once("bell_spmv", kernels.bell_spmv, args)
+    ref = formats.bell_spmv(*args)
+    assert got.shape == ref.shape == (S, rows)
+    assert _close(got, ref, dtype)
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_bad_inputs(cuda):
     rng = np.random.default_rng(3)
@@ -145,9 +287,44 @@ def test_kernels_refuse_bad_inputs(cuda):
         kernels.dia_spmv(offsets, offs, vals, x.t().contiguous().t(), pad)
     with pytest.raises(TypeError):
         kernels.dia_spmv(offsets, offs, vals.half(), x.half(), pad)
+    # a CPU x with operands on the card: refused, not sent to the plain
+    # version (which would fail inside torch)
+    with pytest.raises(ValueError):
+        kernels.dia_spmv(offsets, offs, vals, x.cpu(), pad)
     d, offs, idx, vals, x, padb, rows = _bdia_case(
         rng, 1, 3, 2, 256, 256, torch.float32, cuda)
     with pytest.raises(ValueError):
         kernels.bdia_spmv(d, offs, idx.int(), vals, x, padb, rows)
     with pytest.raises(ValueError):
         kernels.bdia_spmv(d, offs, idx, vals, x, padb, 257)
+    ws, rel, vals, x, ba, WR, rows = _well_case(
+        rng, 1, 2, 2, 8, 2048, 500, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, rel.long(), vals, x, ba, WR, rows)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, rel, vals, x, 4, WR, rows)   # ws shape
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, rel, vals, x, ba, WR, 2049)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, rel, vals, x.cpu(), ba, WR, rows)
+    meta, vals, qb, x, n_out = _swellt_case(rng, 1, 3, 2, 300, 300,
+                                            torch.float32, cuda)
+    with pytest.raises(ValueError):
+        kernels.swellt_spmv_T(meta, vals, qb[:, 1:], x, n_out)
+    with pytest.raises(ValueError):
+        kernels.swellt_spmv_T(meta, vals.double(), qb, x, n_out)
+    with pytest.raises(ValueError):
+        kernels.swellt_spmv_T(meta.long(), vals, qb, x, n_out)
+    with pytest.raises(ValueError):
+        kernels.swellt_spmv_T(meta, vals, qb, x.cpu(), n_out)
+    src, idx, vals, x, rows = _bell_case(rng, 1, 3, 2, 256, 256,
+                                         torch.float32, cuda)
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src.long(), idx, vals, x, rows)
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src, idx.int(), vals, x, rows)
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src, idx, vals[:, :, :, :64].contiguous(), x,
+                          rows)
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src, idx, vals, x.cpu(), rows)

@@ -25,7 +25,8 @@ from raptor_tpu_torch.ruge_stuben import cf_splitting as tcf  # noqa: E402
 from raptor_tpu_torch.ruge_stuben import strength as tstr  # noqa: E402
 from raptor_tpu_torch.utils import glibc_rand as trand  # noqa: E402
 
-from _torch_parity import ANISO, jax_hierarchy, to_port  # noqa: E402
+from _torch_parity import (  # noqa: E402
+    ANISO, assert_same_matrix, jax_hierarchy, to_port)
 
 CASES = [(32, 1), (64, 1), (64, 4), (48, 8)]
 
@@ -37,18 +38,6 @@ def _port_setup(n, S, sweeps=3):
     ml.setup(tst.par_stencil_grid(tst.diffusion_stencil_2d(*ANISO),
                                   (n, n), S))
     return ml
-
-
-def _same_matrix(t, j):
-    """Identical partition and pattern; values equal to 1e-12."""
-    for f in ("row_bounds", "col_bounds"):
-        np.testing.assert_array_equal(getattr(t.partition, f),
-                                      getattr(j.partition, f))
-    tg, jg = t.global_csr, j.global_csr
-    assert tg.shape == jg.shape
-    np.testing.assert_array_equal(tg.indptr, jg.indptr)
-    np.testing.assert_array_equal(tg.indices, jg.indices)
-    np.testing.assert_allclose(tg.data, jg.data, rtol=1e-12, atol=0)
 
 
 @pytest.mark.parametrize("stencil", ["aniso", "laplace27"])
@@ -77,10 +66,10 @@ def test_hierarchy_matches_jax(n, S):
     for tl, jl in zip(tml.levels, jml.levels):
         assert tl.A.global_num_rows == jl.A.global_num_rows
         assert tl.A.nnz == jl.A.nnz
-        _same_matrix(tl.A, jl.A)
+        assert_same_matrix(tl.A, jl.A)
         assert (tl.P is None) == (jl.P is None)
         if tl.P is not None:
-            _same_matrix(tl.P, jl.P)
+            assert_same_matrix(tl.P, jl.P)
     np.testing.assert_allclose(tml.coarse_lu[0], jml.coarse_lu[0],
                                rtol=1e-12, atol=1e-14)
     np.testing.assert_array_equal(tml.coarse_lu[1], jml.coarse_lu[1])
@@ -96,7 +85,7 @@ def test_strength_and_splitting_match_jax(n, S):
         tA = to_port(jl.A)
         js = jstr.strength(jl.A, theta=0.25)
         ts = tstr.strength(tA, theta=0.25)
-        _same_matrix(ts, js)
+        assert_same_matrix(ts, js)
         if i < 3:
             jst_, tst_ = jcf.split_rs_entry(js), tcf.split_rs_entry(ts)
         else:
@@ -106,10 +95,16 @@ def test_strength_and_splitting_match_jax(n, S):
 
 
 def test_unported_options_raise():
-    with pytest.raises(NotImplementedError):
-        ParRugeStubenSolver(0.25, CoarsenType.HMIS, InterpType.ModClassical)
-    with pytest.raises(NotImplementedError):
-        ParRugeStubenSolver(0.25, CoarsenType.RS, InterpType.Extended)
+    """Options of the reference that the port does not run yet raise."""
+    from raptor_tpu_torch.core.types import StrengthType
+    for ct in (CoarsenType.CLJP, CoarsenType.Falgout):
+        with pytest.raises(NotImplementedError, match="CLJP and Falgout"):
+            ParRugeStubenSolver(0.25, ct, InterpType.Extended)
+    with pytest.raises(NotImplementedError, match="direct"):
+        ParRugeStubenSolver(0.25, CoarsenType.PMIS, InterpType.Direct)
+    with pytest.raises(NotImplementedError, match="classical strength"):
+        ParRugeStubenSolver(0.25, CoarsenType.HMIS, InterpType.Extended,
+                            StrengthType.Symmetric)
 
 
 def test_port_imports_neither_jax_nor_raptor_tpu():
