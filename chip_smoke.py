@@ -30,9 +30,10 @@ exit code and no result line:
    each forced format, each applied once and checked against the host
    product (the launch counts of this path), then timed beside its byte
    bound and torch.sparse;
-9. 3-D kernels: every kernel of a format the 3-D hierarchy picked, and
-   the windowed-ELL, sorted-scatter and BELL kernels on the forced level-0
-   P and P^T, against their plain versions in float32 and float64.
+9. 3-D kernels: every kernel of a format the 3-D hierarchy picked (BDIA
+   on its largest operator and on A1), and the windowed-ELL,
+   sorted-scatter and BELL kernels on the forced level-0 P and P^T,
+   against their plain versions in float32 and float64.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -40,6 +41,7 @@ Needs one card; exits non-zero without CUDA or without the package.
 """
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -85,6 +87,44 @@ def time_ms(torch, fn, reps=20, warm=3):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def kernel_ms(torch, fn, reps=50, warm=3):
+    """Device time of one call with the host's launch cost kept out: the
+    calls are queued behind a spin kernel that lasts twice as long as the
+    host takes to enqueue them, so the card runs them back to back; CUDA
+    events around the batch, divided by ``reps``."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(warm):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / warm
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(spin_cycles_per_ms(torch)
+                          * (2 * reps * host_ms + 1)))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@functools.lru_cache(maxsize=None)
+def spin_cycles_per_ms(torch):
+    """Cycles of ``torch.cuda._sleep`` per millisecond on this card."""
+    torch.cuda._sleep(1000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(10_000_000)
+    end.record()
+    end.synchronize()
+    return 10_000_000 / start.elapsed_time(end)
 
 
 def smi_line():
@@ -172,7 +212,8 @@ def kernel_input_len(M):
 def kernel_spec(name, M, x):
     """(kernel call, plain call, bytes, operations) of one kernel on one
     packed operator: each input read once and the output written once, and
-    a multiply-add per stored slot (per entry with a value for the
+    a multiply-add per stored slot (per slot of a listed tile for BDIA,
+    which reads no other tile; per entry with a value for the
     sorted-scatter kernel, which skips the padding and reads no metadata
     of it)."""
     from raptor_tpu_torch.device import formats, kernels
@@ -185,13 +226,16 @@ def kernel_spec(name, M, x):
         nbytes = S * ((K * R + C + R) * isz + 4 * K)
         ops = 2 * S * K * R
     elif name == "bdia_spmv":
+        # the kernel reads the listed tiles of the row blocks below
+        # on_rows_pad, the list itself and one offset per plane
         args = (M.bd_offsets, M.bd_idx, M.bd_vals, x, M.bd_padb,
                 M.on_rows_pad)
-        kern = (M.bd_offsets, M.bd_off) + args[1:]
-        slots = M.bd_vals.numel()
-        nbytes = (slots * (isz + 1) + S * (C + M.on_rows_pad) * isz
-                  + 4 * len(M.bd_offsets))
-        ops = 2 * slots
+        kern = ((M.bd_offsets, M.bd_off) + args[1:]
+                + (M.bd_tptr, M.bd_tplane))
+        tiles = int(M.bd_tptr[:, -1].sum())
+        nbytes = (tiles * 128 * (isz + 1) + 4 * (M.bd_tptr.numel() + tiles)
+                  + S * (C + M.on_rows_pad) * isz + 4 * len(M.bd_offsets))
+        ops = 2 * tiles * 128
     elif name == "wind_ell_spmv":
         args = kern = (M.wl_ws, M.on_cols, M.on_vals, x, M.wl_ba, M.wl_wr,
                        M.rows_pad)
@@ -217,7 +261,7 @@ def torch_sparse(torch, host, dtype, gen):
         torch.from_numpy(g.indptr).cuda(), torch.from_numpy(g.indices).cuda(),
         torch.from_numpy(g.data).cuda().to(dtype), size=g.shape)
     xs = torch.randn(g.n_cols, generator=gen, device="cuda").to(dtype)
-    return time_ms(torch, lambda: sp @ xs)
+    return kernel_ms(torch, lambda: sp @ xs)
 
 
 def bound(nbytes, ops, dt):
@@ -230,7 +274,12 @@ def bound(nbytes, ops, dt):
 
 def check_kernel(torch, name, M, host, gen):
     """One kernel on one packed operator: error against the plain version,
-    kernel / plain / torch.sparse times, byte bound."""
+    kernel / plain / torch.sparse times, byte bound. The kernel and
+    torch.sparse are timed back to back on the card (``kernel_ms``); the
+    kernel also call by call (``call_ms``, the median of single calls
+    each waited for, which holds the host's launch latency), as is the
+    plain version."""
+    from raptor_tpu_torch.device.par import bdia_tile_share
     dt = str(M.dtype).replace("torch.", "")
     x = torch.randn((M.n_shards, kernel_input_len(M)), generator=gen,
                     device="cuda").to(M.dtype)
@@ -243,11 +292,26 @@ def check_kernel(torch, name, M, host, gen):
         raise AssertionError(f"{name} {dt}: max abs err {err} against max "
                              f"abs {scale} (limit {TOL[dt]} relative)")
     bound_ms, bound_by = bound(nbytes, ops, dt)
-    return {
+    c = {
         "dtype": dt, "max_abs_err": err, "rel_err": err / max(scale, 1e-300),
-        "ms": time_ms(torch, kern), "plain_ms": time_ms(torch, plain),
+        "ms": kernel_ms(torch, kern), "call_ms": time_ms(torch, kern),
+        "plain_ms": time_ms(torch, plain),
         "library_ms": torch_sparse(torch, host, M.dtype, gen),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": int(nbytes)}
+    if name == "bdia_spmv":
+        # and the bound of a kernel that streams every plane of the row
+        # blocks below on_rows_pad (the one-thread-per-row BDIA kernel)
+        S, P = M.bd_vals.shape[:2]
+        isz = M.bd_vals.element_size()
+        dense = (S * P * M.on_rows_pad * (isz + 1) + 4 * P
+                 + S * (x.shape[1] + M.on_rows_pad) * isz)
+        tiles = int(M.bd_tptr[:, -1].sum())
+        c.update(tiles=tiles, tile_share=bdia_tile_share(M),
+                 tile_fill=int((M.bd_vals != 0).sum()) / max(1, 128 * tiles),
+                 all_planes_bytes=dense,
+                 all_planes_bound_ms=bound(dense, 2 * S * P * M.on_rows_pad,
+                                           dt)[0])
+    return c
 
 
 def run_checks(torch, cases, lane_pad, gen, checks):
@@ -266,14 +330,25 @@ def run_checks(torch, cases, lane_pad, gen, checks):
                     need_transpose=False)
             if FORMAT_KERNEL.get(M.on_format) != name:
                 raise AssertionError(f"{label} packed as {M.on_format}")
+            if name == "bdia_spmv" and not (
+                    torch.equal(M.bd_tptr, M32.bd_tptr)
+                    and torch.equal(M.bd_tplane, M32.bd_tplane)):
+                raise AssertionError(f"{label}: the {dtype} pack lists "
+                                     f"other tiles than the float32 one")
             c = check_kernel(torch, name, M, host, gen)
             c["operator"] = label
             checks.setdefault(name, []).append(c)
             print(f"  {name} on {label} ({c['dtype']}): rel err "
-                  f"{c['rel_err']:.3e}, kernel {c['ms']:.4f} ms, plain "
+                  f"{c['rel_err']:.3e}, kernel {c['ms']:.4f} ms (call by "
+                  f"call {c['call_ms']:.4f} ms), plain "
                   f"{c['plain_ms']:.4f} ms, torch.sparse "
                   f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-                  f"({c['bytes']} B)", flush=True)
+                  f"({c['bytes']} B"
+                  + (f", {c['tiles']} tiles = {c['tile_share']:.1%}, "
+                     f"{c['tile_fill']:.1%} of their slots filled; "
+                     f"every plane {c['all_planes_bytes']} B, bound "
+                     f"{c['all_planes_bound_ms']:.4f} ms"
+                     if "tiles" in c else "") + ")", flush=True)
             del M
 
 
@@ -662,6 +737,9 @@ def main(argv=None):
         if f in FORMAT_KERNEL:
             label, M, host, embed = largest(dh3, ml3, f)
             cases.append((FORMAT_KERNEL[f], f"3-D {label}", M, host, embed))
+    # and the BDIA operator with the most bytes times launches per cycle
+    cases.append(("bdia_spmv", "3-D A1", dh3.levels[1].A, ml3.levels[1].A,
+                  None))
     for label, f, M, host, embed, *_ in packed:
         if f in ("well", "wellt", "bell"):
             cases.append((FORMAT_KERNEL[f], f"3-D {label} forced {f}", M,
@@ -696,8 +774,12 @@ def main(argv=None):
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
             "checks": [{k: c[k] for k in ("operator", "dtype", "rel_err",
-                                           "ms", "plain_ms", "library_ms",
-                                           "bound_ms")} for c in cs]})
+                                           "ms", "call_ms", "plain_ms",
+                                           "library_ms",
+                                           "bound_ms", "tiles", "tile_share",
+                                           "tile_fill", "all_planes_bound_ms")
+                          if k in c}
+                       for c in cs]})
     summary3 = {"n3": n3, "levels": ml3.num_levels, "setup_s": setup3_s,
                 "pack_s": pack3_s, "formats": formats3,
                 "solve_refinements_ones": k3, "solve_s_first": solve3_s,

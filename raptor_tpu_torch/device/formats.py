@@ -12,7 +12,9 @@ need no masks.
 ``dia_spmv``, ``bdia_spmv``, ``wind_ell_spmv``, ``swellt_spmv_T`` and
 ``bell_spmv`` are the plain versions of the hand-written CUDA kernels in
 ``raptor_tpu_torch/csrc``; ``device.kernels`` launches the kernels on CUDA
-tensors and calls these on CPU tensors only. The packers are the JAX
+tensors and calls these on CPU tensors only. ``bdia_tiles`` lists the
+non-empty BDIA tiles, which the BDIA kernel walks in place of every plane;
+it reads the packed planes and adds nothing to them. The packers are the JAX
 package's, byte for byte, TPU tiling constants included (the windowed-ELL
 tile of ``ba * 128`` rows and 8-aligned window starts, the swellt output
 window of ``SWELLT_AMAX`` rows): they fix the layout, which the CUDA
@@ -280,6 +282,28 @@ def bdia_arrays(a: CSRMatrix, plane_spec, a_pad: int,
     idx[p_ids, rows // LANE, rows % LANE] = a.indices[in_spec] % LANE
     vals[p_ids, rows // LANE, rows % LANE] = a.data[in_spec]
     return idx, vals
+
+
+def bdia_tiles(vals: np.ndarray, rows_pad: int):
+    """The non-empty (plane, 128-row block) tiles of packed BDIA planes
+    ``vals [S, P, A_pad, 128]``, over the ``ceil(rows_pad / 128)`` row
+    blocks the SpMV writes: a CSR per shard, ``tptr [S, nblk + 1]`` int32
+    and ``tplane [S, Tmax]`` int32, where ``tplane[s, tptr[s, a]:tptr[s,
+    a + 1]]`` are the planes p, increasing, whose tile ``vals[s, p, a, :]``
+    holds a nonzero. ``Tmax`` is the largest shard's tile count, at least
+    1; the padding entries are plane 0 and never read. Summing the listed
+    tiles only gives ``bdia_spmv``'s result: a tile left out adds 0 * x."""
+    S, P, _, _ = vals.shape
+    nblk = -(-rows_pad // LANE)
+    occ = np.zeros((S, nblk, P), dtype=bool)
+    for p in range(P):      # one plane at a time: no full-size bool copy
+        occ[:, :, p] = (vals[:, p, :nblk] != 0).any(axis=2)
+    tptr = np.zeros((S, nblk + 1), dtype=np.int32)
+    tptr[:, 1:] = np.cumsum(occ.sum(axis=2), axis=1)
+    tplane = np.zeros((S, max(1, int(tptr[:, -1].max()))), dtype=np.int32)
+    for s in range(S):
+        tplane[s, :tptr[s, -1]] = np.nonzero(occ[s])[1]
+    return tptr, tplane
 
 
 def bdia_spmv(d_offsets: Tuple[int, ...], idx: torch.Tensor,

@@ -9,8 +9,9 @@ Five kernels carry the SpMVs of the solve, one per device format:
   ``(K + 2) * R * itemsize`` bytes per shard.
 - ``bdia_spmv`` (``csrc/bdia_spmv.cu``) replaces
   ``pallas_kernels.py:bdia_spmv_pallas``: coarse Galerkin operators and the
-  embedded P / P^T. Bound: memory, about
-  ``P * A_pad * 128 * (itemsize + 1) + 2 * R * itemsize`` bytes per shard.
+  embedded P / P^T. It walks only the non-empty (plane, 128-row block)
+  tiles that ``formats.bdia_tiles`` lists. Bound: memory, about
+  ``tiles * 128 * (itemsize + 1) + 2 * R * itemsize`` bytes per shard.
 - ``wind_ell_spmv`` (``csrc/wind_ell_spmv.cu``) replaces
   ``pallas_kernels.py:wind_ell_spmv_pallas``: the 3-D transfer operators
   and ELL-headed coarse operators. Bound: memory, about
@@ -62,6 +63,10 @@ SOURCES = {name: CSRC / f"{name}.cu"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# planes a BDIA row block can list (kMaxTiles in csrc/bdia_spmv.cu; the
+# packer's cap, device/par.py:MAX_BDIA_PLANES, is no larger)
+BDIA_MAX_PLANES = 1024
+
 # launches of each kernel since the last reset_launches()
 LAUNCHES = {name: 0 for name in SOURCES}
 
@@ -74,8 +79,9 @@ _L = ctypes.c_longlong
 _ARGTYPES = {
     # vals, x, offsets, out, S, K, R, C, stream
     "dia_spmv": [_P, _P, _P, _P, _I, _I, _L, _L, _P],
-    # idx, vals, x, d_offsets, out, S, P, A_pad, rows, C, stream
-    "bdia_spmv": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P],
+    # idx, vals, x, d_offsets, tptr, tplane, out, S, P, A_pad, rows, C,
+    # Tmax, stream
+    "bdia_spmv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P],
     # ws, rel, vals, x, out, S, W, n_tiles, R, tile_rows, rows, C, stream
     "wind_ell_spmv": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
     # meta, vals, qb, x, out, S, n_tiles, KL, n_out, C, stream
@@ -216,19 +222,25 @@ def dia_spmv(offsets: Tuple[int, ...], offsets_dev: torch.Tensor,
 
 def bdia_spmv(d_offsets: Tuple[int, ...], d_offsets_dev: torch.Tensor,
               idx: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
-              padb: int, rows_pad: int) -> torch.Tensor:
+              padb: int, rows_pad: int, tptr: torch.Tensor,
+              tplane: torch.Tensor) -> torch.Tensor:
     """``out[s, a*128 + l] = sum_p vals[s,p,a,l] * x[s, (a + d_p)*128 +
     idx[s,p,a,l]]`` with x zero outside [0, C). ``idx`` int8 and ``vals``
     ``[S, P, A_pad, 128]``, ``x [S, C]``; ``d_offsets_dev`` is
-    ``d_offsets`` as an int32 tensor. Returns ``[S, rows_pad]``."""
-    if _all_cpu(d_offsets_dev, idx, vals, x):
+    ``d_offsets`` as an int32 tensor; ``tptr [S, nblk + 1]`` and ``tplane
+    [S, Tmax]`` (int32, ``nblk = ceil(rows_pad / 128)``) list the tiles
+    that hold a nonzero (``formats.bdia_tiles``). The kernel sums the
+    listed tiles only; the plain version sums every plane and ignores the
+    list. Returns ``[S, rows_pad]``."""
+    if _all_cpu(d_offsets_dev, idx, vals, x, tptr, tplane):
         return formats.bdia_spmv(d_offsets, idx, vals, x, padb, rows_pad)
     _check_cuda("bdia_spmv", x, {"idx": idx, "vals": vals, "x": x,
-                                 "d_offsets": d_offsets_dev})
+                                 "d_offsets": d_offsets_dev, "tptr": tptr,
+                                 "tplane": tplane})
     S, P, A_pad, L = vals.shape
     if (vals.dtype != x.dtype or idx.dtype != torch.int8
             or idx.shape != vals.shape or L != formats.LANE
-            or x.dim() != 2 or x.shape[0] != S
+            or x.dim() != 2 or x.shape[0] != S or x.shape[1] == 0
             or not 0 < rows_pad <= A_pad * L):
         raise ValueError(f"bdia_spmv: idx {tuple(idx.shape)} {idx.dtype}, "
                          f"vals {tuple(vals.shape)} {vals.dtype}, x "
@@ -236,10 +248,24 @@ def bdia_spmv(d_offsets: Tuple[int, ...], d_offsets_dev: torch.Tensor,
     if d_offsets_dev.dtype != torch.int32 or d_offsets_dev.shape != (P,):
         raise ValueError(f"bdia_spmv: offsets {tuple(d_offsets_dev.shape)} "
                          f"{d_offsets_dev.dtype}, want ({P},) int32")
+    if P > BDIA_MAX_PLANES:
+        raise ValueError(f"bdia_spmv: {P} planes; the kernel stages a row "
+                         f"block's list of at most {BDIA_MAX_PLANES} in "
+                         f"shared memory")
+    _int32("bdia_spmv", "tptr", tptr, (S, -(-rows_pad // L) + 1))
+    if (tplane.dtype != torch.int32 or tplane.dim() != 2
+            or tplane.shape[0] != S or tplane.shape[1] < 1):
+        raise ValueError(f"bdia_spmv: tplane {tuple(tplane.shape)} "
+                         f"{tplane.dtype}, want ({S}, >= 1) int32")
+    # a tile's values and lane ids load as 16- and 4-byte vectors
+    if vals.data_ptr() % 16 or idx.data_ptr() % 4:
+        raise ValueError("bdia_spmv: vals must be 16-byte and idx 4-byte "
+                         "aligned")
     out = torch.empty((S, rows_pad), dtype=x.dtype, device=x.device)
     _launch("bdia_spmv", x, idx.data_ptr(), vals.data_ptr(), x.data_ptr(),
-            d_offsets_dev.data_ptr(), out.data_ptr(), S, P, A_pad, rows_pad,
-            x.shape[1])
+            d_offsets_dev.data_ptr(), tptr.data_ptr(), tplane.data_ptr(),
+            out.data_ptr(), S, P, A_pad, rows_pad, x.shape[1],
+            tplane.shape[1])
     return out
 
 

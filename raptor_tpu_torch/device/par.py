@@ -46,9 +46,9 @@ from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device import kernels
 from raptor_tpu_torch.device.formats import (
     LANE, SWELLT_AMAX, _round_up, _scatter_add, _take, bdia_arrays,
-    bdia_plane_counts, bdia_split_rest, bell_arrays, bell_stats, dia_arrays,
-    dia_detect, dia_spmv_T, ell_arrays, ell_boundary_arrays, ell_spmv,
-    ell_spmv_T, off_spmv, off_spmv_T, select_planes, swellt_arrays,
+    bdia_plane_counts, bdia_split_rest, bdia_tiles, bell_arrays, bell_stats,
+    dia_arrays, dia_detect, dia_spmv_T, ell_arrays, ell_boundary_arrays,
+    ell_spmv, ell_spmv_T, off_spmv, off_spmv_T, select_planes, swellt_arrays,
     swellt_spmv, swellt_stats, wind_ell_arrays, wind_ell_cols,
     wind_ell_stats)
 
@@ -89,6 +89,9 @@ class DeviceParCSR:
     bd_idx: torch.Tensor     # [S, P, A_pad, 128] int8 lane ids
     bd_vals: torch.Tensor    # [S, P, A_pad, 128]
     bd_off: torch.Tensor     # [P] int32 bd_offsets, for the kernel
+    bd_tptr: torch.Tensor    # [S, nblk+1] int32 and [S, Tmax] int32: the
+    bd_tplane: torch.Tensor  # non-empty tiles (bdia_tiles); [S, 1] and
+    #                          [S, 0] unless BDIA
     bl_src: torch.Tensor     # [S, W_b, A128] int32 BELL source block ids
     bl_idx: torch.Tensor     # [S, W_b, A128, 128] int8 lane ids
     bl_vals: torch.Tensor    # [S, W_b, A128, 128]
@@ -245,6 +248,14 @@ def packed_bytes(M: DeviceParCSR) -> int:
     arrays = ((M.dia_vals,) if M.on_format == "dia" else
               (M.bd_idx, M.bd_vals, M.rest_cols, M.rest_vals))
     return sum(t.numel() * t.element_size() for t in arrays)
+
+
+def bdia_tile_share(M: DeviceParCSR) -> float:
+    """Share of a BDIA operator's (plane, row block) tiles that hold a
+    nonzero: those its kernel reads."""
+    S, P = M.bd_vals.shape[:2]
+    return int(M.bd_tptr[:, -1].sum()) / max(
+        1, S * P * (M.bd_tptr.shape[1] - 1))
 
 
 def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
@@ -438,6 +449,8 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     else:
         bd_idx = np.zeros((S, 0, 1, 128), dtype=np.int8)
         bd_vals = np.zeros((S, 0, 1, 128), dtype=npdt)
+        bd_tptr = np.zeros((S, 1), dtype=np.int32)
+        bd_tplane = np.zeros((S, 0), dtype=np.int32)
         Wr = Br = 0
     rest_rows = np.full((S, Br), fmt_R, dtype=np.int32)
     rest_cols = np.zeros((S, Wr, Br), dtype=np.int32)
@@ -522,6 +535,8 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
             off_rows[s], off_cols[s], off_vals[s] = ell_boundary_arrays(
                 blk.off_proc, W_off, B, R, dtype=npdt)
         row_mask[s, :blk.local_num_rows] = 1.0
+    if fmt == "bdia":
+        bd_tptr, bd_tplane = bdia_tiles(bd_vals, fmt_R)
 
     def put(x, dt=None):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dt)
@@ -537,6 +552,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         dia_off=put(np.asarray(dia_offsets, dtype=np.int32)),
         bd_idx=put(bd_idx), bd_vals=put(bd_vals),
         bd_off=put(np.asarray(bd_offsets, dtype=np.int32)),
+        bd_tptr=put(bd_tptr), bd_tplane=put(bd_tplane),
         bl_src=put(bl_src), bl_idx=put(bl_idx), bl_vals=put(bl_vals),
         rest_rows=put(rest_rows, lng), rest_cols=put(rest_cols, lng),
         rest_vals=put(rest_vals),
@@ -626,7 +642,8 @@ def on_spmv(A: DeviceParCSR, x: torch.Tensor) -> torch.Tensor:
                                 x.contiguous(), A.on_rows_pad)
     elif A.on_format == "bdia":
         out = kernels.bdia_spmv(A.bd_offsets, A.bd_off, A.bd_idx, A.bd_vals,
-                                x.contiguous(), A.bd_padb, A.on_rows_pad)
+                                x.contiguous(), A.bd_padb, A.on_rows_pad,
+                                A.bd_tptr, A.bd_tplane)
         # entries of the planes left out go through the compacted gather
         out = out + off_spmv(A.rest_rows, A.rest_cols, A.rest_vals, x,
                              A.on_rows_pad)

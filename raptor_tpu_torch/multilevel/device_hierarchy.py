@@ -21,7 +21,8 @@ import torch
 
 from raptor_tpu_torch.core.types import RelaxType
 from raptor_tpu_torch.device import par as dpar
-from raptor_tpu_torch.device.par import DeviceParCSR, device_put_matrix, spmv
+from raptor_tpu_torch.device.par import (
+    DeviceParCSR, bdia_tile_share, device_put_matrix, spmv)
 from raptor_tpu_torch.device.relax import DeviceRelax, build_relax, chebyshev
 from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
 
@@ -122,14 +123,20 @@ class DeviceHierarchy:
 
     def format_summary(self) -> List[str]:
         """One line per level: its rows and the packed format of A, P and
-        P^T ("format/embedding" for the transfer operators)."""
+        P^T ("format/embedding" for the transfer operators), with the share
+        of its (plane, row block) tiles that a BDIA operator fills."""
+        def fmt(M):
+            if M.on_format != "bdia":
+                return M.on_format
+            return f"bdia({bdia_tile_share(M):.1%})"
+
         lines = []
         for i, lvl in enumerate(self.levels):
             line = (f"level {i:2d}: {lvl.A.global_num_rows:9d} rows  "
-                    f"A {lvl.A.on_format:5s}")
+                    f"A {fmt(lvl.A):5s}")
             if lvl.P is not None:
-                line += (f"  P {lvl.P.on_format}/{lvl.P.embed_kind:5s}"
-                         f"  Pt {lvl.Pt.on_format}/{lvl.Pt.embed_kind}")
+                line += (f"  P {fmt(lvl.P)}/{lvl.P.embed_kind:5s}"
+                         f"  Pt {fmt(lvl.Pt)}/{lvl.Pt.embed_kind}")
             lines.append(line)
         return lines
 

@@ -41,16 +41,26 @@ def _dia_case(rng, S, K, R, C, dtype, device):
     return offsets, offs, vals, x, pad
 
 
-def _bdia_case(rng, S, P, A_pad, rows, C, dtype, device):
+def _bdia_case(rng, S, P, A_pad, rows, C, dtype, device, keep=1.0,
+               empty_blocks=(), empty_shards=()):
+    """Random BDIA planes in which a share ``keep`` of the (plane, row
+    block) tiles hold values, the row blocks ``empty_blocks`` and the
+    shards ``empty_shards`` none; the tile list of what is left
+    (``formats.bdia_tiles``). Zeroed tiles keep random lane ids."""
     d = tuple(sorted(rng.choice(np.arange(-6, 7), P).tolist()))
     padb = max(1, max(abs(v) for v in d))
-    idx = torch.from_numpy(rng.integers(0, 128, (S, P, A_pad, 128),
-                                        dtype=np.int8)).to(device)
-    vals = torch.from_numpy(
-        rng.standard_normal((S, P, A_pad, 128))).to(device, dtype)
+    idx = rng.integers(0, 128, (S, P, A_pad, 128), dtype=np.int8)
+    vals = rng.standard_normal((S, P, A_pad, 128))
+    vals[rng.random((S, P, A_pad)) >= keep] = 0.0
+    vals[:, :, list(empty_blocks)] = 0.0
+    vals[list(empty_shards)] = 0.0
+    tptr, tplane = formats.bdia_tiles(vals, rows)
     x = torch.from_numpy(rng.standard_normal((S, C))).to(device, dtype)
     offs = torch.tensor(d, dtype=torch.int32, device=device)
-    return d, offs, idx, vals, x, padb, rows
+    return (d, offs, torch.from_numpy(idx).to(device),
+            torch.from_numpy(vals).to(device, dtype), x, padb, rows,
+            torch.from_numpy(tptr).to(device),
+            torch.from_numpy(tplane).to(device))
 
 
 def _well_case(rng, S, W, T, ba, rows, C, dtype, device):
@@ -115,10 +125,10 @@ def test_wrappers_take_plain_version_on_cpu():
                                             torch.float64, "cpu")
     assert torch.equal(kernels.dia_spmv(offsets, offs, vals, x, pad),
                        formats.dia_spmv(offsets, vals, x, pad))
-    d, offs, idx, vals, x, padb, rows = _bdia_case(
-        rng, 2, 4, 3, 300, 350, torch.float64, "cpu")
+    d, offs, idx, vals, x, padb, rows, tptr, tplane = _bdia_case(
+        rng, 2, 4, 3, 300, 350, torch.float64, "cpu", keep=0.5)
     assert torch.equal(
-        kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows),
+        kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr, tplane),
         formats.bdia_spmv(d, idx, vals, x, padb, rows))
     args = _well_case(rng, 2, 3, 2, 8, 2000, 900, torch.float64, "cpu")
     assert torch.equal(kernels.wind_ell_spmv(*args),
@@ -139,10 +149,14 @@ def test_wrappers_refuse_cpu_x_with_other_operands():
     offsets, offs, vals, x, pad = _dia_case(rng, 1, 3, 40, 40,
                                             torch.float64, "cpu")
     cases = [(kernels.dia_spmv, (offsets, offs, vals.to(away), x, pad))]
-    d, offs, idx, vals, x, padb, rows = _bdia_case(
+    d, offs, idx, vals, x, padb, rows, tptr, tplane = _bdia_case(
         rng, 1, 2, 1, 100, 100, torch.float64, "cpu")
     cases.append((kernels.bdia_spmv,
-                   (d, offs, idx.to(away), vals, x, padb, rows)))
+                   (d, offs, idx.to(away), vals, x, padb, rows, tptr,
+                    tplane)))
+    cases.append((kernels.bdia_spmv,
+                   (d, offs, idx, vals, x, padb, rows, tptr,
+                    tplane.to(away))))
     ws, rel, vals, x, ba, WR, rows = _well_case(rng, 1, 2, 1, 8, 900, 300,
                                                 torch.float64, "cpu")
     cases.append((kernels.wind_ell_spmv,
@@ -205,20 +219,36 @@ def test_dia_kernel_matches_plain(cuda, dtype, S, K, R, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S,P,A_pad,rows,C", [(1, 40, 256, 32700, 33000),
-                                              (3, 7, 8, 1000, 900),
-                                              (2, 1, 1, 100, 77)])
-def test_bdia_kernel_matches_plain(cuda, dtype, S, P, A_pad, rows, C):
+@pytest.mark.parametrize(
+    "S,P,A_pad,rows,C,keep,empty_blocks,empty_shards",
+    [(1, 40, 256, 32700, 33000, 1.0, (), ()),
+     (3, 7, 8, 1000, 900, 1.0, (), ()),
+     (2, 1, 1, 100, 77, 1.0, (), ()),
+     # most tiles empty, as on the embedded transfer operators
+     (1, 300, 320, 40000, 41000, 0.1, (), ()),
+     # a row block with no tile, in the middle and at the end
+     (2, 9, 16, 2000, 2100, 0.5, (3, 15), ()),
+     # a shard with no tile at all
+     (3, 6, 8, 1024, 1000, 0.7, (), (1,)),
+     # rows_pad not a multiple of 128 and below A_pad * 128
+     (2, 5, 12, 1337, 1500, 0.3, (), ())])
+def test_bdia_kernel_matches_plain(cuda, dtype, S, P, A_pad, rows, C, keep,
+                                   empty_blocks, empty_shards):
+    """The kernel sums the listed tiles only; the plain version every
+    plane. A tile left out holds zeros, so both give the same product."""
     rng = np.random.default_rng(S * 1000 + P)
-    d, offs, idx, vals, x, padb, rows = _bdia_case(rng, S, P, A_pad, rows,
-                                                   C, dtype, cuda)
+    d, offs, idx, vals, x, padb, rows, tptr, tplane = _bdia_case(
+        rng, S, P, A_pad, rows, C, dtype, cuda, keep, empty_blocks,
+        empty_shards)
     before = kernels.LAUNCHES["bdia_spmv"]
-    got = kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows)
+    got = kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr, tplane)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["bdia_spmv"] == before + 1
     ref = formats.bdia_spmv(d, idx, vals, x, padb, rows)
     assert got.shape == ref.shape == (S, rows)
     assert _close(got, ref, dtype)
+    for s in empty_shards:
+        assert not got[s].any()
 
 
 def _launch_once(name, fn, args):
@@ -291,12 +321,25 @@ def test_kernels_refuse_bad_inputs(cuda):
     # version (which would fail inside torch)
     with pytest.raises(ValueError):
         kernels.dia_spmv(offsets, offs, vals, x.cpu(), pad)
-    d, offs, idx, vals, x, padb, rows = _bdia_case(
+    d, offs, idx, vals, x, padb, rows, tptr, tplane = _bdia_case(
         rng, 1, 3, 2, 256, 256, torch.float32, cuda)
     with pytest.raises(ValueError):
-        kernels.bdia_spmv(d, offs, idx.int(), vals, x, padb, rows)
+        kernels.bdia_spmv(d, offs, idx.int(), vals, x, padb, rows, tptr,
+                          tplane)
     with pytest.raises(ValueError):
-        kernels.bdia_spmv(d, offs, idx, vals, x, padb, 257)
+        kernels.bdia_spmv(d, offs, idx, vals, x, padb, 257, tptr, tplane)
+    with pytest.raises(ValueError):
+        kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr.long(),
+                          tplane)
+    with pytest.raises(ValueError):
+        kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows,
+                          tptr[:, 1:].contiguous(), tplane)
+    with pytest.raises(ValueError):
+        kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr,
+                          tplane[:, :0])
+    with pytest.raises(ValueError):
+        kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr,
+                          tplane.cpu())
     ws, rel, vals, x, ba, WR, rows = _well_case(
         rng, 1, 2, 2, 8, 2048, 500, torch.float32, cuda)
     with pytest.raises(ValueError):
