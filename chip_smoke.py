@@ -183,8 +183,25 @@ def operators(dh, ml):
 def needed_bytes(M):
     """Bytes of the packed arrays one on-block apply of ``M`` must read:
     the layout's bytes (``par.packed_bytes``, the format rule's count),
-    less the metadata of the sorted-scatter padding entries (val 0), which
-    the kernel skips before it reads their metadata."""
+    but for BELL only the real slots (``bl_cnt``: values, lane ids, source
+    block ids) and the counts, and for the sorted scatter only the real
+    entries (``wl_cnt``: values, metadata), the slot window bases and the
+    counts; the two kernels read nothing past a count."""
+    from raptor_tpu_torch.device.par import packed_bytes
+    isz = M.on_vals.element_size()
+    if M.on_format == "bell":
+        return (int(M.bl_cnt.sum()) * (128 * (1 + isz) + 4)
+                + 4 * M.bl_cnt.numel())
+    if M.on_format == "wellt":
+        return (int(M.wl_cnt.sum()) * (4 + isz)
+                + 4 * (M.wl_ws.numel() + M.wl_cnt.numel()))
+    return packed_bytes(M)
+
+
+def padded_bytes(M):
+    """What a BELL or sorted-scatter kernel that walks the padded layout
+    reads: every BELL slot; every sorted-scatter value, the metadata of the
+    nonzero ones and the window bases."""
     from raptor_tpu_torch.device.par import packed_bytes
     n = packed_bytes(M)
     if M.on_format == "wellt":
@@ -213,9 +230,9 @@ def kernel_spec(name, M, x):
     """(kernel call, plain call, bytes, operations) of one kernel on one
     packed operator: each input read once and the output written once, and
     a multiply-add per stored slot (per slot of a listed tile for BDIA,
-    which reads no other tile; per entry with a value for the
-    sorted-scatter kernel, which skips the padding and reads no metadata
-    of it)."""
+    which reads no other tile; per lane of a real BELL slot; per entry with
+    a value for the sorted-scatter kernel, which reads no entry past a
+    slot's count)."""
     from raptor_tpu_torch.device import formats, kernels
     S, C = x.shape
     isz = M.on_vals.element_size()
@@ -242,13 +259,15 @@ def kernel_spec(name, M, x):
         nbytes = needed_bytes(M) + S * (C + M.rows_pad) * isz
         ops = 2 * S * M.on_vals.shape[1] * M.rows_pad
     elif name == "swellt_spmv_T":
-        args = kern = (M.on_cols, M.on_vals, M.wl_ws, x, M.rows_pad)
+        args = (M.on_cols, M.on_vals, M.wl_ws, x, M.rows_pad)
+        kern = args + (M.wl_cnt,)
         nbytes = needed_bytes(M) + S * (C + M.rows_pad) * isz
         ops = 2 * int((M.on_vals != 0).sum())
     else:
-        args = kern = (M.bl_src, M.bl_idx, M.bl_vals, x, M.on_rows_pad)
+        args = (M.bl_src, M.bl_idx, M.bl_vals, x, M.on_rows_pad)
+        kern = args + (M.bl_cnt,)
         nbytes = needed_bytes(M) + S * (C + M.on_rows_pad) * isz
-        ops = 2 * M.bl_vals.numel()
+        ops = 2 * 128 * int(M.bl_cnt.sum())
     return (lambda: getattr(kernels, name)(*kern),
             lambda: getattr(formats, name)(*args), nbytes, ops)
 
@@ -279,6 +298,7 @@ def check_kernel(torch, name, M, host, gen):
     kernel also call by call (``call_ms``, the median of single calls
     each waited for, which holds the host's launch latency), as is the
     plain version."""
+    from raptor_tpu_torch.device import kernels
     from raptor_tpu_torch.device.par import bdia_tile_share
     dt = str(M.dtype).replace("torch.", "")
     x = torch.randn((M.n_shards, kernel_input_len(M)), generator=gen,
@@ -311,7 +331,52 @@ def check_kernel(torch, name, M, host, gen):
                  all_planes_bytes=dense,
                  all_planes_bound_ms=bound(dense, 2 * S * P * M.on_rows_pad,
                                            dt)[0])
+    if name in ("bell_spmv", "swellt_spmv_T"):
+        # and the bound of a kernel that walks the padded layout
+        n_out = M.on_rows_pad if name == "bell_spmv" else M.rows_pad
+        isz = M.on_vals.element_size()
+        padded = padded_bytes(M) + M.n_shards * (x.shape[1] + n_out) * isz
+        c.update(padded_bytes=padded,
+                 padded_bound_ms=bound(padded, ops, dt)[0])
+    if name == "bell_spmv":
+        c.update(real_slots=int(M.bl_cnt.sum()),
+                 slots=M.bl_vals.shape[0] * M.bl_vals.shape[1]
+                 * M.bl_vals.shape[2],
+                 live_blocks=int((M.bl_cnt > 0).sum()),
+                 warps=kernels.bell_warps(M.bl_vals.shape[1]))
+    if name == "swellt_spmv_T":
+        # the global atomics the design issues: a model counted on the host
+        # from the packed arrays at the built kernel's launch shape, not a
+        # reading of the card
+        group, span = kernels.swellt_launch_shape(M.on_vals.shape[2] // 128)
+        c.update(nnz=ops // 2, real_entries=int(M.wl_cnt.sum()),
+                 group=group, span=span,
+                 modelled_global_atomics=(
+                     kernels.swellt_modelled_global_atomics(
+                         M.on_cols, M.on_vals, M.wl_ws, M.wl_cnt, M.rows_pad,
+                         group, span)))
     return c
+
+
+def detail(c):
+    """The layout's figures of one check, for its printed line."""
+    if "tiles" in c:
+        return (f", {c['tiles']} tiles = {c['tile_share']:.1%}, "
+                f"{c['tile_fill']:.1%} of their slots filled; every plane "
+                f"{c['all_planes_bytes']} B, bound "
+                f"{c['all_planes_bound_ms']:.4f} ms")
+    if "real_slots" in c:
+        return (f", {c['real_slots']} of {c['slots']} slots real in "
+                f"{c['live_blocks']} row blocks, {c['warps']} warps; padded "
+                f"layout {c['padded_bytes']} B, bound "
+                f"{c['padded_bound_ms']:.4f} ms")
+    if "modelled_global_atomics" in c:
+        return (f", {c['real_entries']} real entries, {c['nnz']} nonzeros, "
+                f"{c['modelled_global_atomics']} global atomics by the host "
+                f"model of {c['group']} tiles a CTA and a {c['span']}-block "
+                f"window; padded layout {c['padded_bytes']} B, bound "
+                f"{c['padded_bound_ms']:.4f} ms")
+    return ""
 
 
 def run_checks(torch, cases, lane_pad, gen, checks):
@@ -330,11 +395,13 @@ def run_checks(torch, cases, lane_pad, gen, checks):
                     need_transpose=False)
             if FORMAT_KERNEL.get(M.on_format) != name:
                 raise AssertionError(f"{label} packed as {M.on_format}")
-            if name == "bdia_spmv" and not (
-                    torch.equal(M.bd_tptr, M32.bd_tptr)
-                    and torch.equal(M.bd_tplane, M32.bd_tplane)):
+            if not (torch.equal(M.bd_tptr, M32.bd_tptr)
+                    and torch.equal(M.bd_tplane, M32.bd_tplane)
+                    and torch.equal(M.bl_cnt, M32.bl_cnt)
+                    and torch.equal(M.wl_cnt, M32.wl_cnt)):
                 raise AssertionError(f"{label}: the {dtype} pack lists "
-                                     f"other tiles than the float32 one")
+                                     f"other tiles, slots or entries than "
+                                     f"the float32 one")
             c = check_kernel(torch, name, M, host, gen)
             c["operator"] = label
             checks.setdefault(name, []).append(c)
@@ -343,12 +410,7 @@ def run_checks(torch, cases, lane_pad, gen, checks):
                   f"call {c['call_ms']:.4f} ms), plain "
                   f"{c['plain_ms']:.4f} ms, torch.sparse "
                   f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-                  f"({c['bytes']} B"
-                  + (f", {c['tiles']} tiles = {c['tile_share']:.1%}, "
-                     f"{c['tile_fill']:.1%} of their slots filled; "
-                     f"every plane {c['all_planes_bytes']} B, bound "
-                     f"{c['all_planes_bound_ms']:.4f} ms"
-                     if "tiles" in c else "") + ")", flush=True)
+                  f"({c['bytes']} B{detail(c)})", flush=True)
             del M
 
 
@@ -539,14 +601,14 @@ def transfer_formats(torch, ml, lane_pad, kernels, seed):
 
 def time_transfer(torch, packed, gen):
     """Each packed operator's SpMV time beside its byte bound and
-    torch.sparse."""
+    torch.sparse, both timed back to back (``kernel_ms``)."""
     from raptor_tpu_torch.device.par import spmv
     rows = []
     for label, f, M, host, _, x, err, pack_s in packed:
         isz = M.on_vals.element_size()
         nbytes = (needed_bytes(M)
                   + M.n_shards * (x.shape[1] + M.rows_pad) * isz)
-        ms = time_ms(torch, lambda M=M, x=x: spmv(M, x))
+        ms = kernel_ms(torch, lambda M=M, x=x: spmv(M, x))
         lib = torch_sparse(torch, host, M.dtype, gen)
         bound_ms, _ = bound(nbytes, 0, "float32")
         rows.append({"operator": label, "forced": f, "format": M.on_format,
@@ -777,7 +839,9 @@ def main(argv=None):
                                            "ms", "call_ms", "plain_ms",
                                            "library_ms",
                                            "bound_ms", "tiles", "tile_share",
-                                           "tile_fill", "all_planes_bound_ms")
+                                           "tile_fill", "all_planes_bound_ms",
+                                           "padded_bound_ms", "real_slots",
+                                           "warps", "real_entries", "nnz")
                           if k in c}
                        for c in cs]})
     summary3 = {"n3": n3, "levels": ml3.num_levels, "setup_s": setup3_s,

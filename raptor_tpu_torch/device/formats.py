@@ -14,7 +14,10 @@ need no masks.
 ``raptor_tpu_torch/csrc``; ``device.kernels`` launches the kernels on CUDA
 tensors and calls these on CPU tensors only. ``bdia_tiles`` lists the
 non-empty BDIA tiles, which the BDIA kernel walks in place of every plane;
-it reads the packed planes and adds nothing to them. The packers are the JAX
+``bell_counts`` and ``swellt_counts`` count the real slots of a BELL row
+block and the real entries of a sorted-scatter slot, past which the BELL
+and sorted-scatter kernels read nothing. All three read the packed arrays
+and add nothing to them. The packers are the JAX
 package's, byte for byte, TPU tiling constants included (the windowed-ELL
 tile of ``ba * 128`` rows and 8-aligned window starts, the swellt output
 window of ``SWELLT_AMAX`` rows): they fix the layout, which the CUDA
@@ -552,6 +555,17 @@ def swellt_arrays(a: CSRMatrix, Kp: int, dtype=np.float64):
     return meta, vals, qbs
 
 
+def swellt_counts(vals: np.ndarray) -> np.ndarray:
+    """Real entries of each slot of a packed sorted-scatter layout ``vals
+    [T, Kp*128]``: ``[T*Kp]`` int32, 1 + the last lane whose value is
+    nonzero, 0 for an unused slot. The packer fills a slot from lane 0, so
+    its padding is the suffix past the count, which the kernel never
+    reads."""
+    nz = vals.reshape(-1, LANE) != 0
+    last = LANE - np.argmax(nz[:, ::-1], axis=1)
+    return np.where(nz.any(axis=1), last, 0).astype(np.int32)
+
+
 def _swellt_src_tgt(meta: torch.Tensor, qb: torch.Tensor):
     """Per-entry source index (tile*128 + srcl) and target index
     ((qb + qrel)*128 + lout), both int64 [S, T, Kp*128]."""
@@ -644,6 +658,18 @@ def bell_arrays(a: CSRMatrix, a128: int, w_b: int, dtype=np.float64):
     idx[w_e, blk, sub] = lane
     vals[w_e, blk, sub] = a.data
     return src, idx, vals
+
+
+def bell_counts(vals: np.ndarray) -> np.ndarray:
+    """Real slots of each row block of a packed BELL layout ``vals [W_b,
+    a128, 128]``: ``[a128]`` int32, 1 + the last w whose slot holds a
+    nonzero value, 0 when none does. ``bell_arrays`` gives a block's slots
+    the ranks 0, 1, ... in turn, so the slots past the count are padding,
+    which the kernel never reads."""
+    cnt = np.zeros(vals.shape[1], dtype=np.int32)
+    for w in range(vals.shape[0]):  # one layer at a time: no full bool copy
+        cnt[(vals[w] != 0).any(axis=1)] = w + 1
+    return cnt
 
 
 def bell_spmv(src: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,

@@ -18,12 +18,18 @@ Five kernels carry the SpMVs of the solve, one per device format:
   ``W * R * (4 + itemsize)`` bytes per shard.
 - ``swellt_spmv_T`` (``csrc/swellt_spmv_T.cu``) replaces
   ``pallas_kernels.py:swellt_spmv_T_pallas``: restriction operators in the
-  sorted-scatter layout, by atomic adds. Bound: memory, about
-  ``T * Kp * 128 * itemsize + 4 * nnz`` bytes per shard (the metadata of
-  padding entries is never read).
+  sorted-scatter layout. A CTA sums a group of source tiles into a
+  shared-memory window and flushes it with one global atomic add per
+  target it touched; the group size and the window are constants of the
+  source. It reads only the real entries of each slot
+  (``formats.swellt_counts``). Bound: memory, about ``E * (4 + itemsize)
+  + 8 * T * Kp + (C + n_out) * itemsize`` bytes per shard, ``E`` real
+  entries.
 - ``bell_spmv`` (``csrc/bell_spmv.cu``) replaces
-  ``pallas_kernels.py:bell_spmv_pallas``: block-ELL of plane slots. Bound:
-  memory, about ``W * A128 * 128 * (1 + itemsize)`` bytes per shard.
+  ``pallas_kernels.py:bell_spmv_pallas``: block-ELL of plane slots. It
+  reads only the real slots of each row block (``formats.bell_counts``).
+  Bound: memory, about ``N * (128 * (1 + itemsize) + 4) + 4 * A128 +
+  (C + rows) * itemsize`` bytes per shard, ``N`` real slots.
 
 Each is written in CUDA C++ for ``sm_90a``, templated on float and double,
 built with ``nvcc`` into a shared library with a plain C interface at first
@@ -51,6 +57,7 @@ import threading
 from typing import Tuple
 
 import torch
+import torch.nn.functional as F
 
 from raptor_tpu_torch.device import formats
 
@@ -84,10 +91,10 @@ _ARGTYPES = {
     "bdia_spmv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P],
     # ws, rel, vals, x, out, S, W, n_tiles, R, tile_rows, rows, C, stream
     "wind_ell_spmv": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
-    # meta, vals, qb, x, out, S, n_tiles, KL, n_out, C, stream
-    "swellt_spmv_T": [_P, _P, _P, _P, _P, _I, _L, _L, _L, _L, _P],
-    # src, idx, vals, x, out, S, W, A128, rows, C, stream
-    "bell_spmv": [_P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _P],
+    # meta, vals, qb, cnt, x, out, S, n_tiles, Kp, n_out, C, stream
+    "swellt_spmv_T": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _P],
+    # src, idx, vals, cnt, x, out, S, W, A128, rows, C, warps, stream
+    "bell_spmv": [_P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _I, _P],
 }
 
 
@@ -304,41 +311,119 @@ def wind_ell_spmv(ws: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
 
 
 def swellt_spmv_T(meta: torch.Tensor, vals: torch.Tensor, qb: torch.Tensor,
-                  x: torch.Tensor, n_out: int) -> torch.Tensor:
+                  x: torch.Tensor, n_out: int,
+                  cnt: torch.Tensor) -> torch.Tensor:
     """``y = B^T x`` from the sorted-scatter layout: ``y[s, (qb[s, t*Kp +
     e//128] + qrel)*128 + lout] += vals[s,t,e] * x[s, t*128 + srcl]`` with
     ``meta = srcl | qrel << 7 | lout << 12``. ``meta`` int32 and ``vals``
-    ``[S, T, Kp*128]``, ``qb [S, T*Kp]`` int32, ``x [S, C]``. Returns
-    ``[S, n_out]``; the float sum order varies between runs (atomics)."""
-    if _all_cpu(meta, vals, qb, x):
+    ``[S, T, Kp*128]``, ``qb`` and ``cnt [S, T*Kp]`` int32 (``cnt``: the
+    real entries of each slot, ``formats.swellt_counts``), ``x [S, C]``.
+    The kernel reads no entry of a slot past its count; the plain version
+    reads every entry and ignores ``cnt``. Returns ``[S, n_out]``; the
+    float sum order varies between runs (atomics)."""
+    if _all_cpu(meta, vals, qb, x, cnt):
         return formats.swellt_spmv_T(meta, vals, qb, x, n_out)
     _check_cuda("swellt_spmv_T", x, {"meta": meta, "vals": vals, "qb": qb,
-                                     "x": x})
+                                     "x": x, "cnt": cnt})
     S, T, KL = vals.shape
     if (vals.dtype != x.dtype or x.dim() != 2 or x.shape[0] != S
             or KL % formats.LANE or n_out <= 0):
         raise ValueError(f"swellt_spmv_T: vals {tuple(vals.shape)} "
                          f"{vals.dtype}, x {tuple(x.shape)} {x.dtype}, "
                          f"n_out {n_out}")
+    Kp = KL // formats.LANE
     _int32("swellt_spmv_T", "meta", meta, vals.shape)
-    _int32("swellt_spmv_T", "qb", qb, (S, T * KL // formats.LANE))
+    _int32("swellt_spmv_T", "qb", qb, (S, T * Kp))
+    _int32("swellt_spmv_T", "cnt", cnt, (S, T * Kp))
     out = torch.zeros((S, n_out), dtype=x.dtype, device=x.device)
     _launch("swellt_spmv_T", x, meta.data_ptr(), vals.data_ptr(),
-            qb.data_ptr(), x.data_ptr(), out.data_ptr(), S, T, KL, n_out,
-            x.shape[1])
+            qb.data_ptr(), cnt.data_ptr(), x.data_ptr(), out.data_ptr(), S,
+            T, Kp, n_out, x.shape[1])
     return out
 
 
+def swellt_launch_shape(Kp: int) -> Tuple[int, int]:
+    """(source tiles a CTA sums, 128-blocks of its shared accumulator) of
+    the sorted-scatter kernel for ``Kp`` slots a tile, read from the built
+    kernel library, whose source fixes both. Needs ``nvcc``."""
+    fn = _lib("swellt_spmv_T").swellt_spmv_T_shape
+    fn.argtypes = [_I, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+    fn.restype = None
+    group, span = _I(), _I()
+    fn(Kp, ctypes.byref(group), ctypes.byref(span))
+    return group.value, span.value
+
+
+def swellt_modelled_global_atomics(meta: torch.Tensor, vals: torch.Tensor,
+                                   qb: torch.Tensor, cnt: torch.Tensor,
+                                   n_out: int, group: int, span: int) -> int:
+    """A host model of the global atomic adds of one ``swellt_spmv_T``
+    launch with ``group`` tiles a CTA and a ``span``-block accumulator
+    (``swellt_launch_shape``), counted from the packed arrays and not read
+    from the card: per CTA (``group`` consecutive source tiles of one
+    shard), one for each distinct target inside its accumulator (``span``
+    128-blocks from the least window base of its slots that hold an entry),
+    and one for each entry outside it. Entries past a slot's count, of
+    value 0 or aimed at or past ``n_out`` add nothing. An upper bound: a
+    shared sum that cancels to exactly 0 is not flushed."""
+    S, T, KL = vals.shape
+    Kp = KL // formats.LANE
+    G = group
+    ng = -(-T // G)
+    c = cnt.reshape(S, T, Kp).long()
+    q = qb.reshape(S, T, Kp).long()
+    m = meta.reshape(S, T, Kp, formats.LANE).long()
+    lane = torch.arange(formats.LANE, device=vals.device)
+    tgt = ((q[..., None] + ((m >> 7) & (formats.SWELLT_AMAX - 1)))
+           * formats.LANE + ((m >> 12) & 127))
+    live = ((lane < c[..., None])
+            & (vals.reshape(S, T, Kp, formats.LANE) != 0) & (tgt < n_out))
+    big = torch.iinfo(torch.int64).max
+    qmin = torch.where(c > 0, q, big).amin(dim=2)               # [S, T]
+    qmin = F.pad(qmin, (0, ng * G - T), value=big)
+    base = qmin.reshape(S, ng, G).amin(dim=2)                   # [S, ng]
+    grp = torch.arange(T, device=vals.device) // G
+    # (a group with no entry keeps the sentinel; cut it below overflow)
+    lo = base[:, grp].clamp(max=1 << 40) * formats.LANE         # [S, T]
+    local = tgt - lo[:, :, None, None]
+    inside = live & (local >= 0) & (local < span * formats.LANE)
+    key = ((torch.arange(S, device=vals.device)[:, None] * ng + grp)
+           [:, :, None, None] * n_out + tgt)
+    return (int((live & ~inside).sum())
+            + int(torch.unique(key[inside]).numel()))
+
+
+# BELL warps per row block by the fullest block's slots: the smallest of
+# 4, 8 and 16 warps (the counts the kernel is built for; chip_sweep.py
+# times each, PERF.md) that leaves each at most BELL_SLOTS_PER_WARP, else 16
+BELL_SLOTS_PER_WARP = 16
+
+
+def bell_warps(W: int) -> int:
+    """Warps of a CTA of the BELL kernel for a layout of ``W`` slots per
+    row block (the fullest block's count): one row block per CTA, so a
+    layout with hundreds of slots in a block takes 16 warps and one with
+    a few dozen 4."""
+    for warps in (4, 8):
+        if warps * BELL_SLOTS_PER_WARP >= W:
+            return warps
+    return 16
+
+
 def bell_spmv(src: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
-              x: torch.Tensor, rows_pad: int) -> torch.Tensor:
+              x: torch.Tensor, rows_pad: int,
+              cnt: torch.Tensor) -> torch.Tensor:
     """``out[s, a*128 + l] = sum_w vals[s,w,a,l] * x[s, src[s,w,a]*128 +
     idx[s,w,a,l]]`` with x zero outside [0, C). ``src [S, W, A128]`` int32,
-    ``idx`` int8 and ``vals [S, W, A128, 128]``, ``x [S, C]``. Returns
-    ``[S, rows_pad]``."""
-    if _all_cpu(src, idx, vals, x):
+    ``idx`` int8 and ``vals [S, W, A128, 128]``, ``cnt [S, A128]`` int32
+    (the real slots of each row block, ``formats.bell_counts``), ``x [S,
+    C]``. The kernel reads no slot of a block past its count; the plain
+    version reads every slot and ignores ``cnt``. Returns ``[S,
+    rows_pad]``."""
+    if _all_cpu(src, idx, vals, x, cnt):
         return formats.bell_spmv(src, idx, vals, x, rows_pad)
     _check_cuda("bell_spmv", x, {"src": src, "idx": idx, "vals": vals,
-                                 "x": x})
+                                 "x": x, "cnt": cnt})
     S, W, A128, L = vals.shape
     if (vals.dtype != x.dtype or idx.dtype != torch.int8
             or idx.shape != vals.shape or L != formats.LANE
@@ -348,7 +433,13 @@ def bell_spmv(src: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                          f"vals {tuple(vals.shape)} {vals.dtype}, x "
                          f"{tuple(x.shape)} {x.dtype}, rows_pad {rows_pad}")
     _int32("bell_spmv", "src", src, (S, W, A128))
+    _int32("bell_spmv", "cnt", cnt, (S, A128))
+    # a slot's values and lane ids load as 16- and 4-byte vectors
+    if vals.data_ptr() % 16 or idx.data_ptr() % 4:
+        raise ValueError("bell_spmv: vals must be 16-byte and idx 4-byte "
+                         "aligned")
     out = torch.empty((S, rows_pad), dtype=x.dtype, device=x.device)
     _launch("bell_spmv", x, src.data_ptr(), idx.data_ptr(), vals.data_ptr(),
-            x.data_ptr(), out.data_ptr(), S, W, A128, rows_pad, x.shape[1])
+            cnt.data_ptr(), x.data_ptr(), out.data_ptr(), S, W, A128,
+            rows_pad, x.shape[1], bell_warps(W))
     return out

@@ -46,11 +46,11 @@ from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device import kernels
 from raptor_tpu_torch.device.formats import (
     LANE, SWELLT_AMAX, _round_up, _scatter_add, _take, bdia_arrays,
-    bdia_plane_counts, bdia_split_rest, bdia_tiles, bell_arrays, bell_stats,
-    dia_arrays, dia_detect, dia_spmv_T, ell_arrays, ell_boundary_arrays,
-    ell_spmv, ell_spmv_T, off_spmv, off_spmv_T, select_planes, swellt_arrays,
-    swellt_spmv, swellt_stats, wind_ell_arrays, wind_ell_cols,
-    wind_ell_stats)
+    bdia_plane_counts, bdia_split_rest, bdia_tiles, bell_arrays, bell_counts,
+    bell_stats, dia_arrays, dia_detect, dia_spmv_T, ell_arrays,
+    ell_boundary_arrays, ell_spmv, ell_spmv_T, off_spmv, off_spmv_T,
+    select_planes, swellt_arrays, swellt_counts, swellt_spmv, swellt_stats,
+    wind_ell_arrays, wind_ell_cols, wind_ell_stats)
 
 MAX_DIA_OFFSETS = 64
 MAX_BDIA_PLANES = 1024
@@ -95,6 +95,8 @@ class DeviceParCSR:
     bl_src: torch.Tensor     # [S, W_b, A128] int32 BELL source block ids
     bl_idx: torch.Tensor     # [S, W_b, A128, 128] int8 lane ids
     bl_vals: torch.Tensor    # [S, W_b, A128, 128]
+    bl_cnt: torch.Tensor     # [S, A128] int32 real slots per row block
+    #                          (bell_counts); [S, 1] unless BELL
     rest_rows: torch.Tensor  # [S, Br] int64 (pad = fmt_R)
     rest_cols: torch.Tensor  # [S, Wr, Br] int64 local col ids
     rest_vals: torch.Tensor  # [S, Wr, Br]
@@ -104,6 +106,8 @@ class DeviceParCSR:
     #                          wellt: [S, T*Kp] int32 per-slot window bases
     wl_jlo: torch.Tensor     # well: [S, T, W] int32 TPU scan bounds (packed
     wl_jhi: torch.Tensor     # for parity, unread); otherwise [S, 1, 1|W]
+    wl_cnt: torch.Tensor     # wellt: [S, T*Kp] int32 real entries per slot
+    #                          (swellt_counts); [S, 1] otherwise
     send_idx: torch.Tensor   # [S, S, Q] int64 local col ids
     send_mask: torch.Tensor  # [S, S, Q]
     halo_src: torch.Tensor   # [S, H] int64 flat recv slot
@@ -215,7 +219,14 @@ def _transfer_bytes(fmt: str, itemsize: int, *dims: int) -> int:
     out): ``ell`` (W, R): int64 cols and values; ``well`` (W, R_w, T):
     int32 window-relative cols, values, window starts; ``wellt`` (T, Kp):
     int32 meta, values, slot window bases; ``bell`` (W_b, A128): int8 lane
-    ids, values, int32 source block ids."""
+    ids, values, int32 source block ids.
+
+    It counts the padded layout, though the BELL and sorted-scatter kernels
+    read only the real slots and entries (``bl_cnt``, ``wl_cnt``). Counted
+    by real slots, BELL would undercut windowed ELL on the 128^3 level-0 P
+    (``PERF.md``) and flip that pick; a rule that ranks by what each kernel
+    reads should rest on times measured on the card (ROADMAP Queue 1 item
+    5), so the padded count, and every pick it makes, stays."""
     b = itemsize
     if fmt == "ell":
         W, R = dims
@@ -419,10 +430,12 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         bl_src = np.zeros((S, bl_Wb, A128), dtype=np.int32)
         bl_idx = np.zeros((S, bl_Wb, A128, 128), dtype=np.int8)
         bl_vals = np.zeros((S, bl_Wb, A128, 128), dtype=npdt)
+        bl_cnt = np.zeros((S, A128), dtype=np.int32)
     else:
         bl_src = np.zeros((S, 0, 1), dtype=np.int32)
         bl_idx = np.zeros((S, 0, 1, 128), dtype=np.int8)
         bl_vals = np.zeros((S, 0, 1, 128), dtype=npdt)
+        bl_cnt = np.zeros((S, 1), dtype=np.int32)
 
     bd_offsets, bd_padb, bd_ba = (), 1, 0
     rest_shards = fmt_blocks
@@ -493,7 +506,9 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     if fmt == "wellt":
         wl_ws = np.zeros((S, wl_T * max(1, sw_Kp)), dtype=np.int32)
         wl_jlo = np.zeros((S, 1, 1), dtype=np.int32)
+        wl_cnt = np.zeros_like(wl_ws)
     else:
+        wl_cnt = np.zeros((S, 1), dtype=np.int32)
         wl_ws = np.zeros((S, wl_T), dtype=np.int32)
         wl_jlo = np.zeros((S, wl_T if fmt == "well" else 1,
                            on_shape[1] if fmt == "well" else 1),
@@ -518,12 +533,14 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
                                            dtype=npdt)
             on_cols[s, :len(meta)], on_vals[s, :len(meta)] = meta, vals
             wl_ws[s, :len(qb)] = qb
+            wl_cnt[s] = swellt_counts(on_vals[s])
         if pack_ell:
             on_cols[s], on_vals[s] = ell_arrays(blk.on_proc, R, W_on,
                                                 dtype=npdt)
         if fmt == "bell":
             bl_src[s], bl_idx[s], bl_vals[s] = bell_arrays(
                 fmt_blocks[s], A128, bl_Wb, dtype=npdt)
+            bl_cnt[s] = bell_counts(bl_vals[s])
         if fmt == "bdia":
             bd_idx[s], bd_vals[s] = bdia_arrays(fmt_blocks[s], bd_spec,
                                                 bd_idx.shape[2], dtype=npdt)
@@ -554,10 +571,12 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         bd_off=put(np.asarray(bd_offsets, dtype=np.int32)),
         bd_tptr=put(bd_tptr), bd_tplane=put(bd_tplane),
         bl_src=put(bl_src), bl_idx=put(bl_idx), bl_vals=put(bl_vals),
+        bl_cnt=put(bl_cnt),
         rest_rows=put(rest_rows, lng), rest_cols=put(rest_cols, lng),
         rest_vals=put(rest_vals),
         emb_idx=put(emb_idx, lng), emb_mask=put(emb_mask.astype(npdt)),
         wl_ws=put(wl_ws), wl_jlo=put(wl_jlo), wl_jhi=put(wl_jhi),
+        wl_cnt=put(wl_cnt),
         send_idx=put(plan.send_idx, lng),
         send_mask=put(plan.send_mask.astype(npdt)),
         halo_src=put(plan.halo_src, lng),
@@ -633,13 +652,13 @@ def on_spmv(A: DeviceParCSR, x: torch.Tensor) -> torch.Tensor:
                                      A.rows_pad)
     if A.on_format == "wellt":
         return kernels.swellt_spmv_T(A.on_cols, A.on_vals, A.wl_ws,
-                                     x.contiguous(), A.rows_pad)
+                                     x.contiguous(), A.rows_pad, A.wl_cnt)
     if A.on_format == "dia":
         out = kernels.dia_spmv(A.dia_offsets, A.dia_off, A.dia_vals,
                                x.contiguous(), A.dia_pad)
     elif A.on_format == "bell":
         out = kernels.bell_spmv(A.bl_src, A.bl_idx, A.bl_vals,
-                                x.contiguous(), A.on_rows_pad)
+                                x.contiguous(), A.on_rows_pad, A.bl_cnt)
     elif A.on_format == "bdia":
         out = kernels.bdia_spmv(A.bd_offsets, A.bd_off, A.bd_idx, A.bd_vals,
                                 x.contiguous(), A.bd_padb, A.on_rows_pad,

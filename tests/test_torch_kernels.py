@@ -80,9 +80,17 @@ def _well_case(rng, S, W, T, ba, rows, C, dtype, device):
             torch.from_numpy(x).to(device, dtype), ba, WR, rows)
 
 
-def _swellt_case(rng, S, T, Kp, n_out, C, dtype, device):
+def _swellt_case(rng, S, T, Kp, n_out, C, dtype, device, ragged=False,
+                 local=False):
     """Random sorted-scatter layout with zero-valued padding entries and
-    slot windows that reach past n_out (those targets are dropped)."""
+    slot windows that reach past n_out (those targets are dropped); the
+    slot counts (``formats.swellt_counts``) last. ``ragged``: each slot
+    holds a random number of real entries from lane 0, the rest padding
+    (value 0, meta 0), as the packer fills it: tile 0 full, tile 1 unused
+    (count 0) and, when S > 1, the last shard all padding. ``local``: the
+    window bases follow the tile, multiples of SWELLT_AMAX as packed, so
+    most targets of a CTA fall in its shared-memory accumulator; else they
+    scatter over the output, and most go to global atomics."""
     KL = Kp * 128
     h = -(-n_out // 128)
     srcl = rng.integers(0, 128, (S, T, KL))
@@ -90,26 +98,57 @@ def _swellt_case(rng, S, T, Kp, n_out, C, dtype, device):
     lout = rng.integers(0, 128, (S, T, KL))
     meta = (srcl | qrel << 7 | lout << 12).astype(np.int32)
     vals = rng.standard_normal((S, T, KL))
-    pad = rng.random((S, T, KL)) < 0.3
+    if ragged:
+        n = rng.integers(0, 129, (S, T, Kp))
+        n[:, 0] = 128
+        if T > 1:
+            n[:, 1] = 0
+        if S > 1:
+            n[-1] = 0
+        pad = (np.arange(128) >= n[..., None]).reshape(S, T, KL)
+    else:
+        pad = rng.random((S, T, KL)) < 0.3
     vals[pad], meta[pad] = 0.0, 0
-    qb = (rng.integers(0, h + 1, (S, T * Kp)) & ~7).astype(np.int32)
+    if local:
+        t = np.repeat(np.arange(T), Kp)
+        qb = (t * h // T + rng.integers(0, 48, (S, T * Kp))).clip(0, h)
+        qb = (qb & ~(formats.SWELLT_AMAX - 1)).astype(np.int32)
+    else:
+        qb = (rng.integers(0, h + 1, (S, T * Kp)) & ~7).astype(np.int32)
     x = rng.standard_normal((S, C))
+    cnt = np.stack([formats.swellt_counts(v) for v in vals])
     return (torch.from_numpy(meta).to(device),
             torch.from_numpy(vals).to(device, dtype),
             torch.from_numpy(qb).to(device),
-            torch.from_numpy(x).to(device, dtype), n_out)
+            torch.from_numpy(x).to(device, dtype), n_out,
+            torch.from_numpy(cnt).to(device))
 
 
-def _bell_case(rng, S, W, A128, rows, C, dtype, device):
+def _bell_case(rng, S, W, A128, rows, C, dtype, device, ragged=False):
     """Random BELL layout; the last source block of x is ragged when C is
-    not a multiple of 128."""
+    not a multiple of 128; the slot counts (``formats.bell_counts``) last.
+    ``ragged``: each row block holds a random number of real slots, the
+    rest padding (value 0), as ``bell_arrays`` packs a skewed operator:
+    block 0 all W, block 1 none and, when S > 1, the last shard none; a
+    fifth of the rows of a real slot are empty."""
     src = rng.integers(0, -(-C // 128), (S, W, A128)).astype(np.int32)
     idx = rng.integers(0, 128, (S, W, A128, 128), dtype=np.int8)
     vals = rng.standard_normal((S, W, A128, 128))
+    if ragged:
+        n = rng.integers(0, W + 1, (S, A128))
+        n[:, 0] = W
+        if A128 > 1:
+            n[:, 1] = 0
+        if S > 1:
+            n[-1] = 0
+        vals[np.arange(W)[None, :, None] >= n[:, None, :]] = 0.0
+        vals[rng.random(vals.shape) < 0.2] = 0.0
     x = rng.standard_normal((S, C))
+    cnt = np.stack([formats.bell_counts(v) for v in vals])
     return (torch.from_numpy(src).to(device), torch.from_numpy(idx).to(device),
             torch.from_numpy(vals).to(device, dtype),
-            torch.from_numpy(x).to(device, dtype), rows)
+            torch.from_numpy(x).to(device, dtype), rows,
+            torch.from_numpy(cnt).to(device))
 
 
 def _close(got, ref, dtype):
@@ -135,9 +174,10 @@ def test_wrappers_take_plain_version_on_cpu():
                        formats.wind_ell_spmv(*args))
     args = _swellt_case(rng, 2, 3, 2, 500, 350, torch.float64, "cpu")
     assert torch.equal(kernels.swellt_spmv_T(*args),
-                       formats.swellt_spmv_T(*args))
+                       formats.swellt_spmv_T(*args[:5]))
     args = _bell_case(rng, 2, 4, 3, 300, 350, torch.float64, "cpu")
-    assert torch.equal(kernels.bell_spmv(*args), formats.bell_spmv(*args))
+    assert torch.equal(kernels.bell_spmv(*args),
+                       formats.bell_spmv(*args[:5]))
     assert kernels.LAUNCHES == dict.fromkeys(kernels.SOURCES, 0)
 
 
@@ -161,13 +201,18 @@ def test_wrappers_refuse_cpu_x_with_other_operands():
                                                 torch.float64, "cpu")
     cases.append((kernels.wind_ell_spmv,
                   (ws.to(away), rel, vals, x, ba, WR, rows)))
-    meta, vals, qb, x, n_out = _swellt_case(rng, 1, 2, 1, 200, 200,
-                                            torch.float64, "cpu")
+    meta, vals, qb, x, n_out, cnt = _swellt_case(rng, 1, 2, 1, 200, 200,
+                                                 torch.float64, "cpu")
     cases.append((kernels.swellt_spmv_T, (meta, vals, qb.to(away), x,
-                                          n_out)))
-    src, idx, vals, x, rows = _bell_case(rng, 1, 2, 2, 200, 200,
-                                         torch.float64, "cpu")
-    cases.append((kernels.bell_spmv, (src, idx, vals.to(away), x, rows)))
+                                          n_out, cnt)))
+    cases.append((kernels.swellt_spmv_T, (meta, vals, qb, x, n_out,
+                                          cnt.to(away))))
+    src, idx, vals, x, rows, cnt = _bell_case(rng, 1, 2, 2, 200, 200,
+                                              torch.float64, "cpu")
+    cases.append((kernels.bell_spmv, (src, idx, vals.to(away), x, rows,
+                                      cnt)))
+    cases.append((kernels.bell_spmv, (src, idx, vals, x, rows,
+                                      cnt.to(away))))
     kernels.reset_launches()
     for fn, args in cases:
         with pytest.raises(ValueError, match="x lies on cpu"):
@@ -277,33 +322,74 @@ def test_wind_ell_kernel_matches_plain(cuda, dtype, S, W, T, rows, C):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S,T,Kp,n_out,C", [(1, 2000, 8, 170000, 256000),
-                                            (3, 7, 3, 900, 800),
-                                            (2, 1, 1, 1, 1)])
-def test_swellt_kernel_matches_plain(cuda, dtype, S, T, Kp, n_out, C):
+@pytest.mark.parametrize("S,T,Kp,n_out,C,ragged,local",
+                         [(1, 2000, 8, 170000, 256000, False, False),
+                          (3, 7, 3, 900, 800, False, False),
+                          (2, 1, 1, 1, 1, False, False),
+                          # suffix padding, unused slots, an empty shard
+                          (3, 40, 5, 20000, 5000, True, False),
+                          # the packed shape: most targets in shared memory
+                          (1, 16384, 7, 170752, 2097152, True, True),
+                          # a ragged last group of tiles, 2 shards
+                          (2, 37, 9, 9000, 4700, True, True),
+                          # wide tiles: fewer tiles a CTA, then one tile
+                          # whose slot tables alone pass 48 KB
+                          (1, 9, 300, 40000, 1200, True, True),
+                          (1, 2, 6500, 90000, 256, True, True)])
+def test_swellt_kernel_matches_plain(cuda, dtype, S, T, Kp, n_out, C,
+                                     ragged, local):
     """Atomic adds: the float32 sum order varies between runs, which the
     relative tolerance of max |ref| covers; padding entries (val 0) and
     targets past n_out drop out."""
     rng = np.random.default_rng(S * 1000 + Kp)
-    args = _swellt_case(rng, S, T, Kp, n_out, C, dtype, cuda)
+    args = _swellt_case(rng, S, T, Kp, n_out, C, dtype, cuda, ragged, local)
     got = _launch_once("swellt_spmv_T", kernels.swellt_spmv_T, args)
-    ref = formats.swellt_spmv_T(*args)
+    ref = formats.swellt_spmv_T(*args[:5])
     assert got.shape == ref.shape == (S, n_out)
     assert _close(got, ref, dtype)
+    if ragged and S > 1:
+        assert not got[-1].any()
+
+
+@pytest.mark.cuda
+def test_swellt_launch_shape(cuda):
+    """The sorted-scatter kernel's launch shape, as its library reports it
+    for the host model: at least one tile a CTA, its slot tables within
+    4,096 slots unless one tile holds more, the group no wider as Kp
+    grows, and a window of whole SWELLT_AMAX windows."""
+    last = None
+    for Kp in (1, 7, 100, 300, 4096, 6500):
+        group, span = kernels.swellt_launch_shape(Kp)
+        assert group >= 1 and (group * Kp <= 4096 or group == 1)
+        assert last is None or group <= last
+        assert span > 0 and span % formats.SWELLT_AMAX == 0
+        last = group
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S,W,A128,rows,C", [(1, 24, 2048, 262000, 40000),
-                                             (3, 5, 9, 1100, 700),
-                                             (2, 1, 1, 100, 77)])
-def test_bell_kernel_matches_plain(cuda, dtype, S, W, A128, rows, C):
+@pytest.mark.parametrize("S,W,A128,rows,C,ragged",
+                         [(1, 24, 2048, 262000, 40000, False),
+                          (3, 5, 9, 1100, 700, False),
+                          (2, 1, 1, 100, 77, False),
+                          # counts from 0 to W, one full and one empty block
+                          # per shard, an empty last shard; 4 and 8 warps
+                          (3, 23, 64, 8100, 9000, True),
+                          (2, 100, 40, 5000, 7000, True),
+                          # hundreds of slots (16 warps) and more than one
+                          # chunk of source ids
+                          (1, 200, 6, 768, 20000, True),
+                          (1, 447, 6, 768, 20000, True),
+                          (2, 1500, 3, 300, 50000, True)])
+def test_bell_kernel_matches_plain(cuda, dtype, S, W, A128, rows, C, ragged):
     rng = np.random.default_rng(S * 1000 + W)
-    args = _bell_case(rng, S, W, A128, rows, C, dtype, cuda)
+    args = _bell_case(rng, S, W, A128, rows, C, dtype, cuda, ragged)
     got = _launch_once("bell_spmv", kernels.bell_spmv, args)
-    ref = formats.bell_spmv(*args)
+    ref = formats.bell_spmv(*args[:5])
     assert got.shape == ref.shape == (S, rows)
     assert _close(got, ref, dtype)
+    if ragged and S > 1:
+        assert not got[-1].any()
 
 
 @pytest.mark.cuda
@@ -350,24 +436,37 @@ def test_kernels_refuse_bad_inputs(cuda):
         kernels.wind_ell_spmv(ws, rel, vals, x, ba, WR, 2049)
     with pytest.raises(ValueError):
         kernels.wind_ell_spmv(ws, rel, vals, x.cpu(), ba, WR, rows)
-    meta, vals, qb, x, n_out = _swellt_case(rng, 1, 3, 2, 300, 300,
-                                            torch.float32, cuda)
+    meta, vals, qb, x, n_out, cnt = _swellt_case(rng, 1, 3, 2, 300, 300,
+                                                 torch.float32, cuda)
     with pytest.raises(ValueError):
-        kernels.swellt_spmv_T(meta, vals, qb[:, 1:], x, n_out)
+        kernels.swellt_spmv_T(meta, vals, qb[:, 1:], x, n_out, cnt)
     with pytest.raises(ValueError):
-        kernels.swellt_spmv_T(meta, vals.double(), qb, x, n_out)
+        kernels.swellt_spmv_T(meta, vals.double(), qb, x, n_out, cnt)
     with pytest.raises(ValueError):
-        kernels.swellt_spmv_T(meta.long(), vals, qb, x, n_out)
+        kernels.swellt_spmv_T(meta.long(), vals, qb, x, n_out, cnt)
     with pytest.raises(ValueError):
-        kernels.swellt_spmv_T(meta, vals, qb, x.cpu(), n_out)
-    src, idx, vals, x, rows = _bell_case(rng, 1, 3, 2, 256, 256,
-                                         torch.float32, cuda)
+        kernels.swellt_spmv_T(meta, vals, qb, x.cpu(), n_out, cnt)
+    with pytest.raises(ValueError):        # the counts: shape, dtype, device
+        kernels.swellt_spmv_T(meta, vals, qb, x, n_out,
+                              cnt[:, 1:].contiguous())
     with pytest.raises(ValueError):
-        kernels.bell_spmv(src.long(), idx, vals, x, rows)
+        kernels.swellt_spmv_T(meta, vals, qb, x, n_out, cnt.long())
     with pytest.raises(ValueError):
-        kernels.bell_spmv(src, idx.int(), vals, x, rows)
+        kernels.swellt_spmv_T(meta, vals, qb, x, n_out, cnt.cpu())
+    src, idx, vals, x, rows, cnt = _bell_case(rng, 1, 3, 2, 256, 256,
+                                              torch.float32, cuda)
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src.long(), idx, vals, x, rows, cnt)
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src, idx.int(), vals, x, rows, cnt)
     with pytest.raises(ValueError):
         kernels.bell_spmv(src, idx, vals[:, :, :, :64].contiguous(), x,
-                          rows)
+                          rows, cnt)
     with pytest.raises(ValueError):
-        kernels.bell_spmv(src, idx, vals, x.cpu(), rows)
+        kernels.bell_spmv(src, idx, vals, x.cpu(), rows, cnt)
+    with pytest.raises(ValueError):        # the counts: shape, dtype, device
+        kernels.bell_spmv(src, idx, vals, x, rows, cnt[:, :1].contiguous())
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src, idx, vals, x, rows, cnt.short())
+    with pytest.raises(ValueError):
+        kernels.bell_spmv(src, idx, vals, x, rows, cnt.cpu())
