@@ -29,11 +29,15 @@ exit code and no result line:
 8. transfer formats: level-0 P and P^T packed in the automatic and in
    each forced format, each applied once and checked against the host
    product (the launch counts of this path), then timed beside its byte
-   bound and torch.sparse;
+   bound and torch.sparse, with the host seconds of slicing a windowed-ELL
+   operator (``formats.well_slices``) beside its pack seconds;
 9. 3-D kernels: every kernel of a format the 3-D hierarchy picked (BDIA
-   on its largest operator and on A1), and the windowed-ELL,
-   sorted-scatter and BELL kernels on the forced level-0 P and P^T,
-   against their plain versions in float32 and float64.
+   on its largest operator and on A1, windowed ELL on each operator that
+   took it), and the windowed-ELL, sorted-scatter and BELL kernels on the
+   forced level-0 P and P^T, against their plain versions in float32 and
+   float64; for windowed ELL also its sliced layout (slots, fill, column
+   width, the x sectors its gathers touch by a host model) and the padded
+   bound.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -180,15 +184,55 @@ def operators(dh, ml):
     return ops
 
 
+def well_slots(M):
+    """Entries of the sliced windowed-ELL layout of ``M`` over all shards
+    (``sptr[s, -1] * 32``; the padding of a shard past it is never read)."""
+    from raptor_tpu_torch.device.formats import WELL_SLICE
+    return int(M.wl_sptr[:, -1].sum()) * WELL_SLICE
+
+
+def well_modelled_gather_sectors(torch, M, C):
+    """A host model of the 32-byte sectors of x that the windowed-ELL
+    kernel's gathers touch: per gather instruction (one slot of one
+    slice, 32 lanes) the distinct sectors of the columns in [0, C), summed.
+    Every lane of a slot gathers, the padding lanes of rows shorter than
+    the slice too (their column 0 reads the window's first value). Counted
+    from the sliced arrays, not read from the card's caches."""
+    from raptor_tpu_torch.device.formats import LANE, WELL_SLICE
+    per = 32 // M.wl_cvals.element_size()       # x values a sector
+    total = 0
+    for s in range(M.n_shards):
+        width = (M.wl_sptr[s, 1:] - M.wl_sptr[s, :-1]).long()
+        n = int(width.sum())
+        slice_of = torch.repeat_interleave(
+            torch.arange(len(width), device=M.device), width)
+        tile = slice_of * WELL_SLICE // (M.wl_ba * LANE)
+        e = slice(0, n * WELL_SLICE)
+        col = (M.wl_ws[s, tile].long()[:, None] * LANE
+               + M.wl_crel[s, e].reshape(n, WELL_SLICE).long())
+        sec = (col // per).masked_fill(col >= C, -1).sort(dim=1).values
+        total += int(((sec[:, 1:] != sec[:, :-1]) & (sec[:, 1:] >= 0)).sum()
+                     + (sec[:, 0] >= 0).sum())
+    return total
+
+
 def needed_bytes(M):
     """Bytes of the packed arrays one on-block apply of ``M`` must read:
     the layout's bytes (``par.packed_bytes``, the format rule's count),
     but for BELL only the real slots (``bl_cnt``: values, lane ids, source
-    block ids) and the counts, and for the sorted scatter only the real
+    block ids) and the counts, for the sorted scatter only the real
     entries (``wl_cnt``: values, metadata), the slot window bases and the
-    counts; the two kernels read nothing past a count."""
+    counts, and for windowed ELL the real entries of its sliced layout
+    (``well_slices``: columns and values of the nonzeros, not the padding
+    lanes of a slice), the row map, the slice offsets and the window
+    starts; the kernels read nothing else."""
     from raptor_tpu_torch.device.par import packed_bytes
     isz = M.on_vals.element_size()
+    if M.on_format == "well":
+        nnz = int((M.wl_cvals != 0).sum())
+        return (nnz * (M.wl_crel.element_size() + isz)
+                + 2 * M.wl_perm.numel() + 4 * M.wl_sptr.numel()
+                + 4 * M.wl_ws.numel())
     if M.on_format == "bell":
         return (int(M.bl_cnt.sum()) * (128 * (1 + isz) + 4)
                 + 4 * M.bl_cnt.numel())
@@ -199,9 +243,10 @@ def needed_bytes(M):
 
 
 def padded_bytes(M):
-    """What a BELL or sorted-scatter kernel that walks the padded layout
-    reads: every BELL slot; every sorted-scatter value, the metadata of the
-    nonzero ones and the window bases."""
+    """What a BELL, sorted-scatter or windowed-ELL kernel that walks the
+    padded layout reads: every BELL or windowed-ELL slot; every
+    sorted-scatter value, the metadata of the nonzero ones and the window
+    bases."""
     from raptor_tpu_torch.device.par import packed_bytes
     n = packed_bytes(M)
     if M.on_format == "wellt":
@@ -231,8 +276,8 @@ def kernel_spec(name, M, x):
     packed operator: each input read once and the output written once, and
     a multiply-add per stored slot (per slot of a listed tile for BDIA,
     which reads no other tile; per lane of a real BELL slot; per entry with
-    a value for the sorted-scatter kernel, which reads no entry past a
-    slot's count)."""
+    a value for the sorted-scatter and windowed-ELL kernels, which read no
+    entry past a slot's count and no padded slot)."""
     from raptor_tpu_torch.device import formats, kernels
     S, C = x.shape
     isz = M.on_vals.element_size()
@@ -254,10 +299,13 @@ def kernel_spec(name, M, x):
                   + S * (C + M.on_rows_pad) * isz + 4 * len(M.bd_offsets))
         ops = 2 * tiles * 128
     elif name == "wind_ell_spmv":
-        args = kern = (M.wl_ws, M.on_cols, M.on_vals, x, M.wl_ba, M.wl_wr,
-                       M.rows_pad)
-        nbytes = needed_bytes(M) + S * (C + M.rows_pad) * isz
-        ops = 2 * S * M.on_vals.shape[1] * M.rows_pad
+        # the plain version of the same function on the same sliced arrays
+        kern = (M.wl_ws, M.wl_perm, M.wl_sptr, M.wl_crel, M.wl_cvals, x,
+                M.wl_ba, M.rows_pad)
+        return (lambda: kernels.wind_ell_spmv(*kern),
+                lambda: formats.well_slices_spmv(*kern),
+                needed_bytes(M) + S * (C + M.rows_pad) * isz,
+                2 * int((M.wl_cvals != 0).sum()))
     elif name == "swellt_spmv_T":
         args = (M.on_cols, M.on_vals, M.wl_ws, x, M.rows_pad)
         kern = args + (M.wl_cnt,)
@@ -331,13 +379,20 @@ def check_kernel(torch, name, M, host, gen):
                  all_planes_bytes=dense,
                  all_planes_bound_ms=bound(dense, 2 * S * P * M.on_rows_pad,
                                            dt)[0])
-    if name in ("bell_spmv", "swellt_spmv_T"):
+    if name in ("bell_spmv", "swellt_spmv_T", "wind_ell_spmv"):
         # and the bound of a kernel that walks the padded layout
         n_out = M.on_rows_pad if name == "bell_spmv" else M.rows_pad
         isz = M.on_vals.element_size()
         padded = padded_bytes(M) + M.n_shards * (x.shape[1] + n_out) * isz
         c.update(padded_bytes=padded,
                  padded_bound_ms=bound(padded, ops, dt)[0])
+    if name == "wind_ell_spmv":
+        slots = well_slots(M)
+        c.update(slots=slots, nnz=ops // 2, fill=ops / 2 / max(1, slots),
+                 padded_slots=M.on_vals.numel(),
+                 col_bytes=M.wl_crel.element_size(),
+                 modelled_gather_sectors=well_modelled_gather_sectors(
+                     torch, M, x.shape[1]))
     if name == "bell_spmv":
         c.update(real_slots=int(M.bl_cnt.sum()),
                  slots=M.bl_vals.shape[0] * M.bl_vals.shape[1]
@@ -370,6 +425,15 @@ def detail(c):
                 f"{c['live_blocks']} row blocks, {c['warps']} warps; padded "
                 f"layout {c['padded_bytes']} B, bound "
                 f"{c['padded_bound_ms']:.4f} ms")
+    if "col_bytes" in c:
+        return (f", sliced {c['slots']} slots of {c['padded_slots']} padded"
+                f", fill {c['fill']:.3f}, {c['col_bytes']}-byte columns, "
+                f"x gathers touch {c['modelled_gather_sectors']} sectors "
+                f"of 32 B by the host model "
+                f"({c['modelled_gather_sectors'] / max(1, c['nnz']):.3f} "
+                f"a nonzero); "
+                f"padded layout {c['padded_bytes']} B, bound "
+                f"{c['padded_bound_ms']:.4f} ms")
     if "modelled_global_atomics" in c:
         return (f", {c['real_entries']} real entries, {c['nnz']} nonzeros, "
                 f"{c['modelled_global_atomics']} global atomics by the host "
@@ -398,7 +462,9 @@ def run_checks(torch, cases, lane_pad, gen, checks):
             if not (torch.equal(M.bd_tptr, M32.bd_tptr)
                     and torch.equal(M.bd_tplane, M32.bd_tplane)
                     and torch.equal(M.bl_cnt, M32.bl_cnt)
-                    and torch.equal(M.wl_cnt, M32.wl_cnt)):
+                    and torch.equal(M.wl_cnt, M32.wl_cnt)
+                    and torch.equal(M.wl_perm, M32.wl_perm)
+                    and torch.equal(M.wl_sptr, M32.wl_sptr)):
                 raise AssertionError(f"{label}: the {dtype} pack lists "
                                      f"other tiles, slots or entries than "
                                      f"the float32 one")
@@ -559,6 +625,17 @@ def cycle_report(torch, dh, b, kernels):
             "level_ms": lv, "launches_per_vcycle": per_cycle}
 
 
+def slice_seconds(M):
+    """Host seconds of ``formats.well_slices`` on the packed windowed-ELL
+    arrays of ``M``, run once more: the share of its pack that the sliced
+    layout adds (``device_put_matrix`` runs it inside the pack)."""
+    from raptor_tpu_torch.device.formats import well_slices
+    arrays = [t.cpu().numpy() for t in (M.wl_ws, M.on_cols, M.on_vals)]
+    t0 = time.perf_counter()
+    well_slices(*arrays, M.wl_ba, M.wl_wr)
+    return time.perf_counter() - t0
+
+
 def transfer_formats(torch, ml, lane_pad, kernels, seed):
     """Level-0 P (embedded by columns) and P^T (by rows) in the automatic
     and in each forced format, as the JAX package's shoot-out packs them
@@ -589,8 +666,9 @@ def transfer_formats(torch, ml, lane_pad, kernels, seed):
             if not err <= TOL["float32"]:
                 raise AssertionError(f"{label} {f or 'auto'} "
                                      f"({M.on_format}): rel err {err}")
+            slice_s = slice_seconds(M) if M.on_format == "well" else None
             packed.append((label, f or "auto", M, host, embed, x, err,
-                           pack_s))
+                           pack_s, slice_s))
     launches = dict(kernels.LAUNCHES)
     for name in ("wind_ell_spmv", "swellt_spmv_T", "bell_spmv"):
         if launches[name] == 0:
@@ -604,7 +682,7 @@ def time_transfer(torch, packed, gen):
     torch.sparse, both timed back to back (``kernel_ms``)."""
     from raptor_tpu_torch.device.par import spmv
     rows = []
-    for label, f, M, host, _, x, err, pack_s in packed:
+    for label, f, M, host, _, x, err, pack_s, slice_s in packed:
         isz = M.on_vals.element_size()
         nbytes = (needed_bytes(M)
                   + M.n_shards * (x.shape[1] + M.rows_pad) * isz)
@@ -614,11 +692,13 @@ def time_transfer(torch, packed, gen):
         rows.append({"operator": label, "forced": f, "format": M.on_format,
                      "embed": M.embed_kind, "ms": ms, "bound_ms": bound_ms,
                      "library_ms": lib, "bytes": int(nbytes),
-                     "rel_err": err, "pack_s": pack_s})
+                     "rel_err": err, "pack_s": pack_s, "slice_s": slice_s})
+        sliced = ("" if slice_s is None else
+                  f" (slicing {slice_s:.2f} s of it, timed again)")
         print(f"  {label} {f:5s} -> {M.on_format:5s}/{M.embed_kind:4s}: "
               f"spmv {ms:.4f} ms, bound {bound_ms:.4f} ms ({nbytes} B), "
               f"torch.sparse {lib:.4f} ms, rel err {err:.2e}, packed in "
-              f"{pack_s:.2f} s", flush=True)
+              f"{pack_s:.2f} s{sliced}", flush=True)
     return rows
 
 
@@ -794,9 +874,11 @@ def main(argv=None):
     # hierarchy picked (on its largest operator), and the forced level-0
     # P and P^T
     t0 = time.perf_counter()
-    cases = []
+    cases = [("wind_ell_spmv", f"3-D {label}", M, host(), embed)
+             for label, M, host, embed in operators(dh3, ml3)
+             if M.on_format == "well"]
     for f in sorted({o[1].on_format for o in operators(dh3, ml3)}):
-        if f in FORMAT_KERNEL:
+        if f in FORMAT_KERNEL and f != "well":
             label, M, host, embed = largest(dh3, ml3, f)
             cases.append((FORMAT_KERNEL[f], f"3-D {label}", M, host, embed))
     # and the BDIA operator with the most bytes times launches per cycle
@@ -841,7 +923,8 @@ def main(argv=None):
                                            "bound_ms", "tiles", "tile_share",
                                            "tile_fill", "all_planes_bound_ms",
                                            "padded_bound_ms", "real_slots",
-                                           "warps", "real_entries", "nnz")
+                                           "warps", "real_entries", "nnz",
+                                           "slots", "fill", "col_bytes")
                           if k in c}
                        for c in cs]})
     summary3 = {"n3": n3, "levels": ml3.num_levels, "setup_s": setup3_s,

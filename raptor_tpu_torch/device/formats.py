@@ -9,19 +9,22 @@ gather/scatter index type); BDIA lane ids stay int8, as the kernel reads
 them. Padding entries point at column 0 with value 0, so the linear ops
 need no masks.
 
-``dia_spmv``, ``bdia_spmv``, ``wind_ell_spmv``, ``swellt_spmv_T`` and
+``dia_spmv``, ``bdia_spmv``, ``well_slices_spmv``, ``swellt_spmv_T`` and
 ``bell_spmv`` are the plain versions of the hand-written CUDA kernels in
 ``raptor_tpu_torch/csrc``; ``device.kernels`` launches the kernels on CUDA
-tensors and calls these on CPU tensors only. ``bdia_tiles`` lists the
-non-empty BDIA tiles, which the BDIA kernel walks in place of every plane;
+tensors and calls these on CPU tensors only. ``wind_ell_spmv``, the
+windowed-ELL product over the padded arrays, is the oracle that
+``well_slices_spmv`` is held to. ``bdia_tiles`` lists the non-empty BDIA
+tiles, which the BDIA kernel walks in place of every plane;
 ``bell_counts`` and ``swellt_counts`` count the real slots of a BELL row
 block and the real entries of a sorted-scatter slot, past which the BELL
-and sorted-scatter kernels read nothing. All three read the packed arrays
-and add nothing to them. The packers are the JAX
-package's, byte for byte, TPU tiling constants included (the windowed-ELL
-tile of ``ba * 128`` rows and 8-aligned window starts, the swellt output
-window of ``SWELLT_AMAX`` rows): they fix the layout, which the CUDA
-kernels read as it is.
+and sorted-scatter kernels read nothing; ``well_slices`` copies the real
+entries of the windowed-ELL layout into the sliced layout its kernel
+reads. All four read the packed arrays and change nothing in them. The
+packers are the JAX package's, byte for byte, TPU tiling constants
+included (the windowed-ELL tile of ``ba * 128`` rows and 8-aligned window
+starts, the swellt output window of ``SWELLT_AMAX`` rows): they fix the
+layout, which the CUDA kernels read as it is.
 """
 
 from __future__ import annotations
@@ -462,6 +465,103 @@ def wind_ell_spmv(ws: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
     need = wind_src_height(x.shape[1], WR) * LANE
     x2 = F.pad(x, (0, need - x.shape[1]))
     return (vals * _take(x2, cols)).sum(dim=1)[:, :rows_pad]
+
+
+# --- windowed ELL, sliced: the real entries only -------------------------------
+#
+# The packer spreads a row's entries over all W slots, so the real entries
+# of the padded [W, R] layout are no prefix of its rows (a third of P's
+# slots at 128^3 hold one). The sliced layout keeps them only: within each
+# tile of ba*128 rows, rows sorted by entry count, longest first, cut into
+# slices of WELL_SLICE rows, each as wide as its longest row, stored
+# slot-major, so one warp reads a slice slot by slot, one lane per row.
+
+WELL_SLICE = 32         # rows of a slice: one warp, one lane per row
+
+
+def well_slices(ws: np.ndarray, rel: np.ndarray, vals: np.ndarray, ba: int,
+                WR: int):
+    """The sliced layout of packed windowed-ELL arrays ``ws [S, T]``, ``rel``
+    and ``vals [S, W, R]`` (``R = T * ba * 128``), read from them alone.
+
+    Returns ``(perm [S, R] int16, sptr [S, n + 1] int32, crel [S, E],
+    cvals [S, E])`` with ``n = R / WELL_SLICE`` slices per shard:
+
+    - ``perm[s, k*32 + l]`` is the row, within its tile, of lane l of slice
+      k: the tile's rows by their count of nonzero values, most first, ties
+      by row;
+    - slice k's entries are ``[sptr[s, k]*32, sptr[s, k + 1]*32)`` of
+      ``crel``/``cvals``, slot-major (entry ``(sptr[s, k] + j)*32 + l`` is
+      slot j of lane l), its width the count of its longest row;
+    - a row's entries are its nonzeros in slot order, so a sum over them
+      adds what the padded loop adds, in the same order; each lane's
+      padding (value 0, column 0) follows them;
+    - ``crel`` holds the window-relative columns, int16 when ``WR * 128 <=
+      32768`` and else int32; ``cvals`` the values, in ``vals``' dtype.
+
+    ``E`` is the largest shard's entries (at least one slot); a smaller
+    shard is padded with zeros past its ``sptr[s, -1]*32``."""
+    S, W, R = vals.shape
+    TR = ba * LANE
+    T = R // TR
+    assert R == T * TR and ws.shape == (S, T) and TR <= 1 << 15
+    n = R // WELL_SLICE
+    cdt = np.int16 if WR * LANE <= 1 << 15 else np.int32
+    perm = np.zeros((S, R), dtype=np.int16)
+    sptr = np.zeros((S, n + 1), dtype=np.int32)
+    parts = []
+    for s in range(S):
+        nz = vals[s] != 0                                   # [W, R]
+        cnt = nz.sum(axis=0).reshape(T, TR)
+        order = np.argsort(-cnt, axis=1, kind="stable")     # [T, TR]
+        perm[s] = order.reshape(-1)
+        width = np.take_along_axis(cnt, order, axis=1)[:, ::WELL_SLICE]
+        sptr[s, 1:] = np.cumsum(width.reshape(-1))
+        # entries by row, then slot: the k-th nonzero of row r goes to
+        # slot k of the lane that holds r
+        r, w = np.nonzero(nz.T)
+        start = np.zeros(R + 1, dtype=np.int64)
+        start[1:] = np.cumsum(cnt.reshape(-1))
+        k = np.arange(len(r)) - start[r]
+        pos = np.empty(R, dtype=np.int64)                   # row -> lane slot
+        pos[(np.arange(T)[:, None] * TR + order).reshape(-1)] = np.arange(R)
+        p = pos[r]
+        dest = ((sptr[s, p // WELL_SLICE].astype(np.int64) + k) * WELL_SLICE
+                + p % WELL_SLICE)
+        parts.append((dest, rel[s, w, r], vals[s, w, r]))
+    E = max(1, int(sptr[:, -1].max())) * WELL_SLICE
+    crel = np.zeros((S, E), dtype=cdt)
+    cvals = np.zeros((S, E), dtype=vals.dtype)
+    for s, (dest, rv, vv) in enumerate(parts):
+        crel[s, dest] = rv
+        cvals[s, dest] = vv
+    return perm, sptr, crel, cvals
+
+
+def well_slices_spmv(ws: torch.Tensor, perm: torch.Tensor,
+                     sptr: torch.Tensor, crel: torch.Tensor,
+                     cvals: torch.Tensor, x: torch.Tensor, ba: int,
+                     rows_pad: int) -> torch.Tensor:
+    """``wind_ell_spmv`` from the sliced layout (``well_slices``): out[s,
+    tile*TR + perm[s, p]] = sum over the entries e of lane p (``p = k*32 +
+    l``, slice k) of cvals[s, e] * x[s, ws[s, tile]*128 + crel[s, e]], x
+    zero outside [0, C); returns [S, rows_pad]."""
+    S, R = perm.shape
+    TR = ba * LANE
+    C = x.shape[1]
+    out = torch.zeros((S, R), dtype=x.dtype, device=x.device)
+    for s in range(S):
+        width = (sptr[s, 1:] - sptr[s, :-1]).long()         # [n]
+        k = torch.repeat_interleave(
+            torch.arange(len(width), device=x.device), width * WELL_SLICE)
+        e = torch.arange(len(k), device=x.device)
+        p = k * WELL_SLICE + e % WELL_SLICE
+        tile = p // TR
+        row = tile * TR + perm[s, p].long()
+        col = ws[s, tile].long() * LANE + crel[s, :len(k)].long()
+        xv = torch.where(col < C, x[s, col.clamp(max=C - 1)], 0.0)
+        out[s].index_add_(0, row, cvals[s, :len(k)] * xv)
+    return out[:, :rows_pad]
 
 
 # --- sorted-scatter windowed transpose ("wellt", the restriction format) --------

@@ -14,8 +14,11 @@ Five kernels carry the SpMVs of the solve, one per device format:
   ``tiles * 128 * (itemsize + 1) + 2 * R * itemsize`` bytes per shard.
 - ``wind_ell_spmv`` (``csrc/wind_ell_spmv.cu``) replaces
   ``pallas_kernels.py:wind_ell_spmv_pallas``: the 3-D transfer operators
-  and ELL-headed coarse operators. Bound: memory, about
-  ``W * R * (4 + itemsize)`` bytes per shard.
+  and ELL-headed coarse operators. It reads the sliced copy of the layout
+  (``formats.well_slices``): the real entries only, a warp per 32-row
+  slice of rows sorted by length. Bound: memory, about ``E * (c +
+  itemsize) + 2 * R + 4 * R / 32 + (C + rows) * itemsize`` bytes per
+  shard, ``E`` sliced entries, ``c`` 2 or 4 bytes a column.
 - ``swellt_spmv_T`` (``csrc/swellt_spmv_T.cu``) replaces
   ``pallas_kernels.py:swellt_spmv_T_pallas``: restriction operators in the
   sorted-scatter layout. A CTA sums a group of source tiles into a
@@ -40,7 +43,8 @@ contiguity, raises if the launch reports an error, and counts its launches
 in ``LAUNCHES``.
 
 When every tensor argument lies on the CPU, a wrapper runs the kernel's
-plain PyTorch version (``device.formats``, same name). Otherwise it
+plain PyTorch version (``device.formats``, same name; for windowed ELL
+``well_slices_spmv``, over the same sliced arrays). Otherwise it
 launches the kernel on CUDA tensors or raises (for a mix of devices too);
 it never falls back to the plain version.
 """
@@ -89,8 +93,10 @@ _ARGTYPES = {
     # idx, vals, x, d_offsets, tptr, tplane, out, S, P, A_pad, rows, C,
     # Tmax, stream
     "bdia_spmv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _L, _L, _L, _P],
-    # ws, rel, vals, x, out, S, W, n_tiles, R, tile_rows, rows, C, stream
-    "wind_ell_spmv": [_P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L, _L, _P],
+    # ws, perm, sptr, crel, cvals, x, out, S, n_tiles, tile_rows, E, rows,
+    # C, col_bytes, stream
+    "wind_ell_spmv": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _L, _L,
+                      _I, _P],
     # meta, vals, qb, cnt, x, out, S, n_tiles, Kp, n_out, C, stream
     "swellt_spmv_T": [_P, _P, _P, _P, _P, _P, _I, _L, _I, _L, _L, _P],
     # src, idx, vals, cnt, x, out, S, W, A128, rows, C, warps, stream
@@ -282,31 +288,47 @@ def _int32(name: str, arg: str, t: torch.Tensor, shape) -> None:
                          f"{tuple(shape)} int32")
 
 
-def wind_ell_spmv(ws: torch.Tensor, rel: torch.Tensor, vals: torch.Tensor,
-                  x: torch.Tensor, ba: int, WR: int,
-                  rows_pad: int) -> torch.Tensor:
-    """``out[s, r] = sum_w vals[s,w,r] * x[s, ws[s, r // (ba*128)]*128 +
-    rel[s,w,r]]`` with x zero outside [0, C). ``ws [S, T]`` and
-    ``rel [S, W, R]`` int32, ``vals [S, W, R]`` with ``R = T * ba * 128``,
-    ``x [S, C]``. ``WR`` only sizes the plain version's padded copy of x.
-    Returns ``[S, rows_pad]``."""
-    if _all_cpu(ws, rel, vals, x):
-        return formats.wind_ell_spmv(ws, rel, vals, x, ba, WR, rows_pad)
-    _check_cuda("wind_ell_spmv", x, {"ws": ws, "rel": rel, "vals": vals,
-                                     "x": x})
-    S, W, R = vals.shape
+def wind_ell_spmv(ws: torch.Tensor, perm: torch.Tensor, sptr: torch.Tensor,
+                  crel: torch.Tensor, cvals: torch.Tensor, x: torch.Tensor,
+                  ba: int, rows_pad: int) -> torch.Tensor:
+    """The windowed-ELL product from its sliced layout
+    (``formats.well_slices``): ``out[s, r] = sum over the entries of row r
+    of cvals * x[s, ws[s, r // (ba*128)]*128 + crel]`` with x zero outside
+    [0, C). ``ws [S, T]`` int32, ``perm [S, R]`` int16 with ``R = T * ba *
+    128``, ``sptr [S, R/32 + 1]`` int32, ``crel`` (int16 or int32) and
+    ``cvals [S, E]`` with ``E`` a multiple of 32 and at least each shard's
+    ``sptr[s, -1] * 32`` (not checked: it lies on the card), ``x [S, C]``;
+    the kernel indexes a shard with 32-bit offsets, so R, E and C stay
+    below 2^31.
+    Returns ``[S, rows_pad]``; each row sums its entries in slot order."""
+    if _all_cpu(ws, perm, sptr, crel, cvals, x):
+        return formats.well_slices_spmv(ws, perm, sptr, crel, cvals, x, ba,
+                                        rows_pad)
+    _check_cuda("wind_ell_spmv", x, {"ws": ws, "perm": perm, "sptr": sptr,
+                                     "crel": crel, "cvals": cvals, "x": x})
+    S, R = perm.shape
     tile_rows = ba * formats.LANE
-    if (vals.dtype != x.dtype or x.dim() != 2 or x.shape[0] != S
-            or R % tile_rows or not 0 < rows_pad <= R):
-        raise ValueError(f"wind_ell_spmv: vals {tuple(vals.shape)} "
-                         f"{vals.dtype}, x {tuple(x.shape)} {x.dtype}, "
+    SL = formats.WELL_SLICE
+    if (x.dim() != 2 or x.shape[0] != S or x.shape[1] == 0
+            or R % tile_rows or not 0 < rows_pad <= R
+            or cvals.dtype != x.dtype or cvals.dim() != 2
+            or cvals.shape[0] != S or cvals.shape[1] % SL
+            or cvals.shape[1] == 0 or crel.shape != cvals.shape
+            or crel.dtype not in (torch.int16, torch.int32)
+            or perm.dtype != torch.int16 or tile_rows > 1 << 15
+            or max(R, cvals.shape[1], x.shape[1]) >= 1 << 31):
+        raise ValueError(f"wind_ell_spmv: perm {tuple(perm.shape)} "
+                         f"{perm.dtype}, crel {tuple(crel.shape)} "
+                         f"{crel.dtype}, cvals {tuple(cvals.shape)} "
+                         f"{cvals.dtype}, x {tuple(x.shape)} {x.dtype}, "
                          f"tile {tile_rows}, rows_pad {rows_pad}")
-    _int32("wind_ell_spmv", "rel", rel, vals.shape)
     _int32("wind_ell_spmv", "ws", ws, (S, R // tile_rows))
+    _int32("wind_ell_spmv", "sptr", sptr, (S, R // SL + 1))
     out = torch.empty((S, rows_pad), dtype=x.dtype, device=x.device)
-    _launch("wind_ell_spmv", x, ws.data_ptr(), rel.data_ptr(),
-            vals.data_ptr(), x.data_ptr(), out.data_ptr(), S, W,
-            R // tile_rows, R, tile_rows, rows_pad, x.shape[1])
+    _launch("wind_ell_spmv", x, ws.data_ptr(), perm.data_ptr(),
+            sptr.data_ptr(), crel.data_ptr(), cvals.data_ptr(), x.data_ptr(),
+            out.data_ptr(), S, R // tile_rows, tile_rows, cvals.shape[1],
+            rows_pad, x.shape[1], crel.element_size())
     return out
 
 

@@ -50,7 +50,7 @@ from raptor_tpu_torch.device.formats import (
     bell_stats, dia_arrays, dia_detect, dia_spmv_T, ell_arrays,
     ell_boundary_arrays, ell_spmv, ell_spmv_T, off_spmv, off_spmv_T,
     select_planes, swellt_arrays, swellt_counts, swellt_spmv, swellt_stats,
-    wind_ell_arrays, wind_ell_cols, wind_ell_stats)
+    well_slices, wind_ell_arrays, wind_ell_cols, wind_ell_stats)
 
 MAX_DIA_OFFSETS = 64
 MAX_BDIA_PLANES = 1024
@@ -108,6 +108,11 @@ class DeviceParCSR:
     wl_jhi: torch.Tensor     # for parity, unread); otherwise [S, 1, 1|W]
     wl_cnt: torch.Tensor     # wellt: [S, T*Kp] int32 real entries per slot
     #                          (swellt_counts); [S, 1] otherwise
+    wl_perm: torch.Tensor    # well, sliced (well_slices): [S, R_w] int16
+    wl_sptr: torch.Tensor    # row map, [S, R_w/32 + 1] int32 slice offsets,
+    wl_crel: torch.Tensor    # [S, E] int16|int32 window-relative cols and
+    wl_cvals: torch.Tensor   # [S, E] values of the real entries; [S, 1]
+    #                          unless well
     send_idx: torch.Tensor   # [S, S, Q] int64 local col ids
     send_mask: torch.Tensor  # [S, S, Q]
     halo_src: torch.Tensor   # [S, H] int64 flat recv slot
@@ -222,11 +227,13 @@ def _transfer_bytes(fmt: str, itemsize: int, *dims: int) -> int:
     ids, values, int32 source block ids.
 
     It counts the padded layout, though the BELL and sorted-scatter kernels
-    read only the real slots and entries (``bl_cnt``, ``wl_cnt``). Counted
+    read only the real slots and entries (``bl_cnt``, ``wl_cnt``), and the
+    windowed-ELL kernel, like them, reads less than the count says: only
+    the real entries, from the sliced copy (``well_slices``). Counted
     by real slots, BELL would undercut windowed ELL on the 128^3 level-0 P
     (``PERF.md``) and flip that pick; a rule that ranks by what each kernel
     reads should rest on times measured on the card (ROADMAP Queue 1 item
-    5), so the padded count, and every pick it makes, stays."""
+    7), so the padded count, and every pick it makes, stays."""
     b = itemsize
     if fmt == "ell":
         W, R = dims
@@ -514,6 +521,10 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
                            on_shape[1] if fmt == "well" else 1),
                           dtype=np.int32)
     wl_jhi = np.zeros_like(wl_jlo)
+    wl_perm = np.zeros((S, 1), dtype=np.int16)
+    wl_sptr = np.zeros((S, 1), dtype=np.int32)
+    wl_crel = np.zeros((S, 1), dtype=np.int16)
+    wl_cvals = np.zeros((S, 1), dtype=npdt)
 
     off_rows = np.full((S, B), R, dtype=np.int32)
     off_cols = np.zeros((S, W_off, B), dtype=np.int32)
@@ -554,6 +565,9 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         row_mask[s, :blk.local_num_rows] = 1.0
     if fmt == "bdia":
         bd_tptr, bd_tplane = bdia_tiles(bd_vals, fmt_R)
+    if fmt == "well":
+        wl_perm, wl_sptr, wl_crel, wl_cvals = well_slices(
+            wl_ws, on_cols, on_vals, wl_ba, wl_wr)
 
     def put(x, dt=None):
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dt)
@@ -576,7 +590,8 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         rest_vals=put(rest_vals),
         emb_idx=put(emb_idx, lng), emb_mask=put(emb_mask.astype(npdt)),
         wl_ws=put(wl_ws), wl_jlo=put(wl_jlo), wl_jhi=put(wl_jhi),
-        wl_cnt=put(wl_cnt),
+        wl_cnt=put(wl_cnt), wl_perm=put(wl_perm), wl_sptr=put(wl_sptr),
+        wl_crel=put(wl_crel), wl_cvals=put(wl_cvals),
         send_idx=put(plan.send_idx, lng),
         send_mask=put(plan.send_mask.astype(npdt)),
         halo_src=put(plan.halo_src, lng),
@@ -647,9 +662,9 @@ def on_spmv(A: DeviceParCSR, x: torch.Tensor) -> torch.Tensor:
         x = (torch.gather(x2, 1, idx) * A.emb_mask[:, :, None]).reshape(S,
                                                                         -1)
     if A.on_format == "well":
-        return kernels.wind_ell_spmv(A.wl_ws, A.on_cols, A.on_vals,
-                                     x.contiguous(), A.wl_ba, A.wl_wr,
-                                     A.rows_pad)
+        return kernels.wind_ell_spmv(A.wl_ws, A.wl_perm, A.wl_sptr,
+                                     A.wl_crel, A.wl_cvals, x.contiguous(),
+                                     A.wl_ba, A.rows_pad)
     if A.on_format == "wellt":
         return kernels.swellt_spmv_T(A.on_cols, A.on_vals, A.wl_ws,
                                      x.contiguous(), A.rows_pad, A.wl_cnt)

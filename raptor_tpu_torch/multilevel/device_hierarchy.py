@@ -26,12 +26,6 @@ from raptor_tpu_torch.device.par import (
 from raptor_tpu_torch.device.relax import DeviceRelax, build_relax, chebyshev
 from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
 
-# stagnation guard: STALL_RUN consecutive cycles, each reducing the
-# residual by less than a factor STALL_RATIO, stop the solve (typically
-# the f32 floor; solve_mixed goes below it)
-STALL_RATIO = 0.999
-STALL_RUN = 4
-
 
 @dataclasses.dataclass
 class DeviceLevel:
@@ -88,6 +82,12 @@ class DeviceHierarchy:
         self.num_smooth_sweeps = ml.num_smooth_sweeps
         self.solve_tol = ml.solve_tol
         self.max_iterations = ml.max_iterations
+        # stagnation guard of ``solve``: stall_run consecutive cycles, each
+        # reducing the residual by less than a factor stall_ratio, stop it
+        # (typically at the f32 floor; solve_mixed goes below it);
+        # stall_run <= 0 turns the guard off
+        self.stall_ratio = 0.999
+        self.stall_run = 4
 
         put = dict(dtype=dtype, lane_pad=lane_pad, need_transpose=False,
                    device=self.device)
@@ -177,19 +177,24 @@ class DeviceHierarchy:
             n = float(dpar.norm(r))
             return n / b_norm if abs(b_norm) > 1e-16 else n
 
+        stall_ratio = float(self.stall_ratio)
+        stall_run = int(self.stall_run)
+        if stall_run <= 0:
+            stall_run = max_iter + 1        # never trips
+
         r_norm = rel_norm(b - spmv(A0, x))
         res = np.full(max_iter + 1, -1.0)
         res[0] = r_norm
         k = run = 0
-        while r_norm > self.solve_tol and k < max_iter and run < STALL_RUN:
+        while r_norm > self.solve_tol and k < max_iter and run < stall_run:
             x = self.vcycle(x, b)
             new_norm = rel_norm(b - spmv(A0, x))
-            run = run + 1 if new_norm > STALL_RATIO * r_norm else 0
+            run = run + 1 if new_norm > stall_ratio * r_norm else 0
             r_norm = new_norm
             k += 1
             res[k] = r_norm
         return SolveResult(x, res, k,
-                           run >= STALL_RUN and r_norm > self.solve_tol)
+                           run >= stall_run and r_norm > self.solve_tol)
 
     def solve_mixed(self, x64: np.ndarray, b64: np.ndarray,
                     tol: float = 1e-7, max_iter: int = 100,

@@ -109,6 +109,39 @@ def test_solve_iterations_independent_of_shards():
     assert iters[0] == iters[1]
 
 
+@pytest.mark.parametrize("dtype,stall_ratio,stall_run,tol,stalled", [
+    # the guard off: a tolerance below the float32 floor (about 1e-7 here)
+    # keeps both solves going for all max_iterations cycles
+    ("float32", 0.999, 0, 1e-12, False),
+    # two cycles in a row reducing by less than 0.4 stop both, at the
+    # same cycle: their float64 factors agree to 1e-9 and none lies
+    # within 1e-3 of 0.4 (0.381, 0.405, 0.421 at cycles 6-8)
+    ("float64", 0.4, 2, 1e-12, True)])
+def test_stall_guard_knobs_match_jax(dtype, stall_ratio, stall_run, tol,
+                                     stalled):
+    """``stall_ratio`` / ``stall_run`` set on the instance steer the
+    stagnation guard of both packages' ``solve`` alike."""
+    jml = jax_hierarchy(N_SOLVE, 1)
+    jdh = JaxDeviceHierarchy(jml, jpar.make_mesh(1),
+                             dtype=getattr(jnp, dtype), lane_pad=1)
+    tdh = DeviceHierarchy(port_hierarchy(jml), dtype=getattr(torch, dtype),
+                          lane_pad=1, device="cpu")
+    for dh in (jdh, tdh):
+        dh.solve_tol, dh.max_iterations = tol, 25
+        dh.stall_ratio, dh.stall_run = stall_ratio, stall_run
+    b = rhs(jml)
+    jr = jdh.solve(jdh.vector(np.zeros_like(b)), jdh.vector(b))
+    tr = tdh.solve(tdh.vector(np.zeros_like(b)), tdh.vector(b))
+    assert tr.n_iters == int(jr.n_iters)
+    assert tr.stalled == bool(jr.stalled) == stalled
+    if stalled:
+        assert 3 < tr.n_iters < 25
+        factors = tr.res[1:tr.n_iters + 1] / tr.res[:tr.n_iters]
+        assert np.abs(factors - stall_ratio).min() > 1e-3
+    else:
+        assert tr.n_iters == 25 and tr.res[25] > 1e-9
+
+
 @pytest.mark.parametrize("S", [8])
 def test_solve_mixed_matches_jax(S):
     """Mixed-precision refinement on an f32 hierarchy: both reach 1e-8,

@@ -63,21 +63,39 @@ def _bdia_case(rng, S, P, A_pad, rows, C, dtype, device, keep=1.0,
             torch.from_numpy(tplane).to(device))
 
 
-def _well_case(rng, S, W, T, ba, rows, C, dtype, device):
-    """Random windowed-ELL layout with window starts up to the packer's
-    clamp, so windows reach past the end of x into the padded source
-    height (zeros in the plain version, the kernel's bounds check)."""
-    R = T * ba * 128
-    WR = 8
+def _well_case(rng, S, W, T, ba, rows, C, dtype, device, WR=8,
+               empty_tiles=(), empty_shards=()):
+    """A random padded windowed-ELL layout and its sliced copy
+    (``formats.well_slices``): rows of 0 to W entries spread over the W
+    slots, as the packer spreads them, none in the tiles ``empty_tiles``
+    (zero-width slices), the shards ``empty_shards`` or the rows from
+    ``rows`` on; window starts up to the packer's clamp, so windows reach
+    past the end of x into the padded source height (zeros in the plain
+    versions, the kernel's bounds check). Columns are int16 when ``WR *
+    128 <= 32768``, else int32. Returns the kernel's arguments and the
+    padded ones (for ``formats.wind_ell_spmv``)."""
+    TR = ba * 128
+    R = T * TR
     cap = formats.wind_src_height(C, WR) - WR
-    ws = rng.integers(0, cap + 1, (S, T)).astype(np.int32) & ~7
+    ws = (rng.integers(0, cap + 1, (S, T)) & ~7).astype(np.int32)
     rel = rng.integers(0, WR * 128, (S, W, R)).astype(np.int32)
     vals = rng.standard_normal((S, W, R))
-    vals[rng.random((S, W, R)) < 0.2] = 0.0            # padding slots
+    n = rng.integers(0, W + 1, (S, R))
+    vals[rng.random((S, W, R)) * W >= n[:, None, :]] = 0.0
+    for t in empty_tiles:
+        vals[:, :, t * TR:(t + 1) * TR] = 0.0
+    vals[list(empty_shards)] = 0.0
+    vals[:, :, rows:] = 0.0
     x = rng.standard_normal((S, C))
-    return (torch.from_numpy(ws).to(device), torch.from_numpy(rel).to(device),
-            torch.from_numpy(vals).to(device, dtype),
-            torch.from_numpy(x).to(device, dtype), ba, WR, rows)
+    sliced = formats.well_slices(ws, rel, vals, ba, WR)
+
+    def dev(a, dt=None):
+        return torch.from_numpy(a).to(device, dt)
+
+    xt = dev(x, dtype)
+    return ((dev(ws), *(dev(a) for a in sliced[:3]), dev(sliced[3], dtype),
+             xt, ba, rows),
+            (dev(ws), dev(rel), dev(vals, dtype), xt, ba, WR, rows))
 
 
 def _swellt_case(rng, S, T, Kp, n_out, C, dtype, device, ragged=False,
@@ -169,9 +187,12 @@ def test_wrappers_take_plain_version_on_cpu():
     assert torch.equal(
         kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr, tplane),
         formats.bdia_spmv(d, idx, vals, x, padb, rows))
-    args = _well_case(rng, 2, 3, 2, 8, 2000, 900, torch.float64, "cpu")
+    args, padded = _well_case(rng, 2, 3, 2, 8, 2000, 900, torch.float64,
+                              "cpu")
     assert torch.equal(kernels.wind_ell_spmv(*args),
-                       formats.wind_ell_spmv(*args))
+                       formats.well_slices_spmv(*args))
+    assert _close(kernels.wind_ell_spmv(*args),
+                  formats.wind_ell_spmv(*padded), torch.float64)
     args = _swellt_case(rng, 2, 3, 2, 500, 350, torch.float64, "cpu")
     assert torch.equal(kernels.swellt_spmv_T(*args),
                        formats.swellt_spmv_T(*args[:5]))
@@ -197,10 +218,12 @@ def test_wrappers_refuse_cpu_x_with_other_operands():
     cases.append((kernels.bdia_spmv,
                    (d, offs, idx, vals, x, padb, rows, tptr,
                     tplane.to(away))))
-    ws, rel, vals, x, ba, WR, rows = _well_case(rng, 1, 2, 1, 8, 900, 300,
-                                                torch.float64, "cpu")
+    (ws, perm, sptr, crel, cvals, x, ba, rows), _ = _well_case(
+        rng, 1, 2, 1, 8, 900, 300, torch.float64, "cpu")
     cases.append((kernels.wind_ell_spmv,
-                  (ws.to(away), rel, vals, x, ba, WR, rows)))
+                  (ws.to(away), perm, sptr, crel, cvals, x, ba, rows)))
+    cases.append((kernels.wind_ell_spmv,
+                  (ws, perm, sptr, crel, cvals.to(away), x, ba, rows)))
     meta, vals, qb, x, n_out, cnt = _swellt_case(rng, 1, 2, 1, 200, 200,
                                                  torch.float64, "cpu")
     cases.append((kernels.swellt_spmv_T, (meta, vals, qb.to(away), x,
@@ -306,18 +329,33 @@ def _launch_once(name, fn, args):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("S,W,T,rows,C", [(1, 11, 64, 65000, 8000),
-                                          (3, 83, 5, 4500, 70000),
-                                          (2, 1, 1, 1, 5)])
-def test_wind_ell_kernel_matches_plain(cuda, dtype, S, W, T, rows, C):
-    """Ragged row tails (rows < T*1024), several shards, padding slots and
-    an x shorter than the padded source height."""
+@pytest.mark.parametrize(
+    "S,W,T,rows,C,WR,empty_tiles,empty_shards",
+    [(1, 11, 64, 65000, 8000, 56, (), ()),          # int16 columns
+     (3, 83, 5, 4500, 70000, 632, (), ()),          # wide, int32 columns
+     (2, 1, 1, 1, 5, 8, (), ()),
+     # zero-width slices: an empty tile, an empty shard beside a full one
+     (2, 7, 4, 3000, 5000, 16, (1,), ()),
+     (2, 11, 3, 3000, 9000, 264, (), (1,))])
+def test_wind_ell_kernel_matches_plain(cuda, dtype, S, W, T, rows, C, WR,
+                                       empty_tiles, empty_shards):
+    """The kernel on the sliced layout against its plain version on the
+    same arrays and the padded plain version; ragged row tails (rows <
+    T*1024), several shards and an x shorter than the padded source
+    height. Each row sums in slot order, so kernel and plain version
+    differ only by the kernel's fused multiply-adds."""
     rng = np.random.default_rng(S * 1000 + W)
-    args = _well_case(rng, S, W, T, 8, rows, C, dtype, cuda)
+    args, padded = _well_case(rng, S, W, T, 8, rows, C, dtype, cuda, WR,
+                              empty_tiles, empty_shards)
+    assert args[3].dtype == (torch.int16 if WR * 128 <= 1 << 15
+                             else torch.int32)
     got = _launch_once("wind_ell_spmv", kernels.wind_ell_spmv, args)
-    ref = formats.wind_ell_spmv(*args)
+    ref = formats.well_slices_spmv(*args)
     assert got.shape == ref.shape == (S, rows)
     assert _close(got, ref, dtype)
+    assert _close(got, formats.wind_ell_spmv(*padded), dtype)
+    for s in empty_shards:
+        assert not got[s].any()
 
 
 @pytest.mark.cuda
@@ -426,16 +464,31 @@ def test_kernels_refuse_bad_inputs(cuda):
     with pytest.raises(ValueError):
         kernels.bdia_spmv(d, offs, idx, vals, x, padb, rows, tptr,
                           tplane.cpu())
-    ws, rel, vals, x, ba, WR, rows = _well_case(
+    (ws, perm, sptr, crel, cvals, x, ba, rows), _ = _well_case(
         rng, 1, 2, 2, 8, 2048, 500, torch.float32, cuda)
     with pytest.raises(ValueError):
-        kernels.wind_ell_spmv(ws, rel.long(), vals, x, ba, WR, rows)
+        kernels.wind_ell_spmv(ws, perm, sptr, crel.long(), cvals, x, ba,
+                              rows)
     with pytest.raises(ValueError):
-        kernels.wind_ell_spmv(ws, rel, vals, x, 4, WR, rows)   # ws shape
+        kernels.wind_ell_spmv(ws, perm.int(), sptr, crel, cvals, x, ba, rows)
     with pytest.raises(ValueError):
-        kernels.wind_ell_spmv(ws, rel, vals, x, ba, WR, 2049)
+        kernels.wind_ell_spmv(ws, perm, sptr.long(), crel, cvals, x, ba,
+                              rows)
     with pytest.raises(ValueError):
-        kernels.wind_ell_spmv(ws, rel, vals, x.cpu(), ba, WR, rows)
+        kernels.wind_ell_spmv(ws, perm, sptr[:, 1:].contiguous(), crel,
+                              cvals, x, ba, rows)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, perm, sptr, crel, cvals.double(), x, ba,
+                              rows)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, perm, sptr, crel[:, 1:].contiguous(),
+                              cvals[:, 1:].contiguous(), x, ba, rows)
+    with pytest.raises(ValueError):                 # ws shape
+        kernels.wind_ell_spmv(ws, perm, sptr, crel, cvals, x, 4, rows)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, perm, sptr, crel, cvals, x, ba, 2049)
+    with pytest.raises(ValueError):
+        kernels.wind_ell_spmv(ws, perm, sptr, crel, cvals, x.cpu(), ba, rows)
     meta, vals, qb, x, n_out, cnt = _swellt_case(rng, 1, 3, 2, 300, 300,
                                                  torch.float32, cuda)
     with pytest.raises(ValueError):
