@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (raptor_tpu_torch) through its main path
 on one NVIDIA card, and check what comes out.
 
-    python3 chip_smoke.py [--n 2048] [--n3 128] [--seed 0]
+    python3 chip_smoke.py [--n 2048] [--n3 128] [--nk 512] [--seed 0]
 
 Phases, each printed as it ends; any failure ends the run with a non-zero
 exit code and no result line:
@@ -37,7 +37,22 @@ exit code and no result line:
    forced level-0 P and P^T, against their plain versions in float32 and
    float64; for windowed ELL also its sliced layout (slots, fill, column
    width, the x sectors its gathers touch by a host model) and the padded
-   bound.
+   bound;
+10. 2-D SOR and Krylov: nk x nk rotated anisotropic diffusion, CLJP +
+   modified classical, theta 0.25 (the reference's examples/example.py and
+   examples/benchmark_pcg.py). The example run: SOR(1), weight 1, a
+   float64 hierarchy, b = A 1, solved to 1e-7 (at 512^2 in at most the
+   JAX package's 36 V-cycles), with
+   the launches, device time, enqueue time and profiler busy time of one
+   cycle and each level's forward and backward schedule levels, and a
+   small SOR solve on the card and on the CPU, which must agree. Then
+   SSOR, Jacobi, l1-Jacobi and multicolour SOR / SSOR, one solve each of
+   at most 10 cycles, which must stay finite. Then the Krylov benchmark on
+   the same setup with Chebyshev(3) in float32: AMG-PCG, Pre-BiCGStab and
+   AMG-preconditioned GMRES(30) to 1e-5, plain CG and BiCGStab to 1e-5 on
+   the float64 operator, and a float64 CG with the float32 V-cycle as its
+   preconditioner to 1e-11; each must reach its tolerance within its cap.
+   Plain CG in float32 is run and printed, not held to 1e-5.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -485,7 +500,6 @@ def level_times(torch, dh, reps=20):
     residual, restriction and prolongation (the coarse solve on the
     coarsest level), by CUDA events."""
     from raptor_tpu_torch.device.par import spmv
-    from raptor_tpu_torch.device.relax import chebyshev
     rows = []
     for i, lvl in enumerate(dh.levels):
         S, R = lvl.A.n_shards, lvl.A.rows_pad
@@ -498,11 +512,10 @@ def level_times(torch, dh, reps=20):
         xc = torch.ones((S, lvl.Pt.rows_pad), dtype=dh.dtype, device="cuda")
 
         def share(lvl=lvl, b=b, xc=xc):
-            x = chebyshev(lvl.A, lvl.RX, torch.zeros_like(b), b,
-                          dh.num_smooth_sweeps)
+            x = dh.relax(lvl, torch.zeros_like(b), b)
             spmv(lvl.Pt, b - spmv(lvl.A, x))
             x = x + spmv(lvl.P, xc)
-            return chebyshev(lvl.A, lvl.RX, x, b, dh.num_smooth_sweeps)
+            return dh.relax(lvl, x, b)
         rows.append(time_ms(torch, share, reps))
     return rows
 
@@ -558,6 +571,193 @@ def lap27_setup(n):
     return A, ml
 
 
+def example_setup(n, relax_type, sweeps=1):
+    """The reference's example runs (examples/example.py,
+    examples/benchmark_pcg.py): n x n rotated anisotropic diffusion on one
+    shard, CLJP + modified classical, theta 0.25."""
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.par_multilevel import (
+        ParRugeStubenSolver)
+    A = par_stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n), 1)
+    ml = ParRugeStubenSolver(0.25, CoarsenType.CLJP, InterpType.ModClassical,
+                             relax_type=relax_type)
+    ml.num_smooth_sweeps = sweeps
+    ml.setup(A)
+    return A, ml
+
+
+def require_launches(what, launches, names=("dia_spmv", "bdia_spmv")):
+    """Fail when a kernel of a path was launched no time in its run."""
+    idle = [name for name in names if launches[name] == 0]
+    if idle:
+        raise AssertionError(f"{what}: kernels of the path did not run: "
+                             f"{idle} ({launches})")
+
+
+# phase 10: the JAX package's V-cycles to 1e-7 of the SOR example at 512^2
+# (``JAX_PLATFORMS=cpu python examples/example.py 512 1``), the most the
+# port may take there; the smoothers beside SOR, each one solve of at most
+# SMOOTHER_CYCLES V-cycles
+SOR_CYCLES_512 = 36
+SMOOTHERS = ("SSOR", "Jacobi", "L1Jacobi", "MCSOR", "MCSSOR")
+SMOOTHER_CYCLES = 10
+
+
+def sor_krylov(torch, nk, kernels, by_path):
+    """Phase 10 (see the module docstring); returns its summary."""
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device import par as dpar
+    from raptor_tpu_torch.krylov.bicgstab import bicgstab
+    from raptor_tpu_torch.krylov.cg import cg
+    from raptor_tpu_torch.krylov.gmres import gmres
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    n = nk * nk
+    t0 = time.perf_counter()
+    A, ml = example_setup(nk, RelaxType.SOR)
+    setup_s = time.perf_counter() - t0
+    print(ml.print_hierarchy())
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy(ml, dtype=torch.float64)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    print(f"setup: {ml.num_levels} levels in {setup_s:.3f} s; float64 "
+          f"SOR hierarchy packed in {pack_s:.3f} s")
+    print("\n".join(dh.format_summary()))
+    fwd = [lvl.RX.n_fwd_levels for lvl in dh.levels[:-1]]
+    bwd = [lvl.RX.n_bwd_levels for lvl in dh.levels[:-1]]
+    print(f"schedule levels per level, forward {fwd} (sum {sum(fwd)}), "
+          f"backward {bwd} (sum {sum(bwd)})")
+
+    # 1. the example run: SOR(1) to 1e-7
+    b = A.mult(np.ones(n))
+    xd, bd = dh.vector(np.zeros(n)), dh.vector(b)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r = dh.solve(xd, bd)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    by_path["sor_solve"] = dict(kernels.LAUNCHES)
+    k = r.n_iters
+    x = dh.host(r.x)
+    relres = float(np.linalg.norm(b - A.mult(x)) / np.linalg.norm(b))
+    print(f"SOR solve: {k} V-cycles to {r.res[k]:.3e} (host-recomputed "
+          f"{relres:.3e}) in {solve_s:.3f} s, {solve_s / max(1, k) * 1e3:.1f}"
+          f" ms a cycle; launches {by_path['sor_solve']}", flush=True)
+    if not (np.isfinite(x).all() and x.shape == (n,)):
+        raise AssertionError("SOR solution is not finite or has the wrong "
+                             "shape")
+    limit = SOR_CYCLES_512 if nk == 512 else dh.max_iterations
+    if (r.res[k] > 1e-7 or k > limit or r.stalled
+            or not np.isclose(relres, r.res[k], rtol=1e-6)):
+        raise AssertionError(f"SOR: no 1e-7 within {limit} cycles: "
+                             f"{r.res[:k + 1]} (host {relres})")
+    require_launches("SOR solve", by_path["sor_solve"])
+    sor_res = float(r.res[k])
+
+    kernels.reset_launches()
+    dh.vcycle(xd, bd)
+    torch.cuda.synchronize()
+    per_cycle = dict(kernels.LAUNCHES)
+    t0 = time.perf_counter()
+    dh.vcycle(xd, bd)
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    cycle_ms = time_ms(torch, lambda: dh.vcycle(xd, bd), reps=3, warm=1)
+    n_kern, busy_ms = device_busy(torch, lambda: dh.vcycle(xd, bd))
+    busy = (f"{n_kern} kernels, {busy_ms:.3f} ms busy = "
+            f"{busy_ms / cycle_ms:.1%} of the cycle" if n_kern
+            else "device busy share not measured (no profiler trace)")
+    print(f"SOR V-cycle (float64): {cycle_ms:.3f} ms on the card, host "
+          f"enqueue {enqueue_ms:.3f} ms; {busy}; ported-kernel launches "
+          f"per cycle {per_cycle}", flush=True)
+    kr, res = reference_check(
+        torch, lambda m: example_setup(m, RelaxType.SOR), 64, np.ones)
+    print(f"reference: 64^2 float64 SOR solve, card == CPU plain versions "
+          f"({kr} cycles to {res:.3e})")
+    del dh, xd, r
+
+    # 2. the other smoothers on the same setup, float64
+    smoothers = {}
+    kernels.reset_launches()
+    for name in SMOOTHERS:
+        ml.relax_type = getattr(RelaxType, name)
+        dhs = DeviceHierarchy(ml, dtype=torch.float64)
+        dhs.max_iterations = SMOOTHER_CYCLES
+        t0 = time.perf_counter()
+        rs = dhs.solve(dhs.vector(np.zeros(n)), dhs.vector(b))
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        last = float(rs.res[rs.n_iters])
+        smoothers[name] = {"cycles": rs.n_iters, "res": last,
+                           "stalled": rs.stalled,
+                           "ms_per_cycle": s / max(1, rs.n_iters) * 1e3}
+        print(f"  {name:8s}: {rs.n_iters:2d} V-cycles to {last:.3e}"
+              f"{' (stalled)' if rs.stalled else ''}, "
+              f"{smoothers[name]['ms_per_cycle']:.1f} ms a cycle", flush=True)
+        if not np.isfinite(rs.res[:rs.n_iters + 1]).all():
+            raise AssertionError(f"{name}: non-finite residual {rs.res}")
+        del dhs, rs
+    by_path["smoothers"] = dict(kernels.LAUNCHES)
+    require_launches("smoothers", by_path["smoothers"])
+
+    # 3. examples/benchmark_pcg.py: Chebyshev(3) in float32. The plain
+    # solvers run on the float64 operator: in float32 plain CG does not
+    # reach 1e-5 at 512^2 within 20,000 iterations (its float32 run is
+    # printed, not held to the tolerance)
+    ml.relax_type, ml.num_smooth_sweeps = RelaxType.Chebyshev, 3
+    dhc = DeviceHierarchy(ml, dtype=torch.float32)
+    pre = dhc.precond_pack()
+    A64 = dpar.device_put_matrix(ml.levels[0].A, dtype=torch.float64,
+                                 lane_pad=dhc.lane_pad, need_transpose=False)
+    f32 = (dhc.levels[0].A, dhc.vector(np.zeros(n)), dhc.vector(b))
+    f64 = (A64,) + tuple(
+        dpar.device_put_vector(v, ml.levels[0].A.partition.row_bounds,
+                               A64.rows_pad, dtype=torch.float64)
+        for v in (np.zeros(n), b))
+    # (name, solver, operator and vectors, tolerance, cap, held to it,
+    # other arguments)
+    runs = (("CG (float64)", cg, f64, 1e-5, 20000, True, {}),
+            ("CG (float32)", cg, f32, 1e-5, 20000, False, {}),
+            ("BiCGStab (float64)", bicgstab, f64, 1e-5, 20000, True, {}),
+            ("AMG-PCG", cg, f32, 1e-5, 200, True, {"precond": pre}),
+            ("Pre-BiCGStab", bicgstab, f32, 1e-5, 200, True,
+             {"precond": pre}),
+            ("AMG-GMRES(30)", gmres, f32, 1e-5, 200, True,
+             {"precond": pre, "restart": 30}),
+            ("f64 CG, f32 AMG", cg, f64, 1e-11, 200, True,
+             {"precond": pre}))
+    krylov = {}
+    kernels.reset_launches()
+    for name, fn, args, tol, cap, held, kw in runs:
+        t0 = time.perf_counter()
+        rk = fn(*args, tol=tol, max_iter=cap, **kw)
+        torch.cuda.synchronize()
+        s = time.perf_counter() - t0
+        # CG and GMRES hold ||r|| / ||b||, BiCGStab ||r||; x0 = 0
+        rel = float(rk.res[rk.n_iters] / rk.res[0])
+        krylov[name] = {"iters": rk.n_iters, "rel_res": rel, "s": s,
+                        "ms_per_iter": s / max(1, rk.n_iters) * 1e3,
+                        "held": held}
+        print(f"  {name:18s}: {rk.n_iters:5d} iterations to {rel:.3e} in "
+              f"{s:.3f} s, {krylov[name]['ms_per_iter']:.3f} ms an "
+              f"iteration{'' if held else ' (not held to 1e-5)'}",
+              flush=True)
+        if held and (not rel <= tol or rk.x.dtype != args[2].dtype
+                     or not torch.isfinite(rk.x).all()):
+            raise AssertionError(f"{name}: no {tol} within {cap}: {rel}")
+    by_path["krylov"] = dict(kernels.LAUNCHES)
+    require_launches("Krylov runs", by_path["krylov"])
+    return {"nk": nk, "levels": ml.num_levels, "setup_s": setup_s,
+            "pack_s": pack_s, "fwd_levels": fwd, "bwd_levels": bwd,
+            "sor_cycles": k, "sor_res": sor_res, "sor_solve_s": solve_s,
+            "sor_vcycle_ms": cycle_ms, "sor_vcycle_enqueue_ms": enqueue_ms,
+            "sor_vcycle_kernels": n_kern, "sor_vcycle_busy_ms": busy_ms,
+            "launches_per_sor_vcycle": per_cycle, "smoothers": smoothers,
+            "krylov": krylov}
+
+
 def path_kernels(dh):
     """The kernels the solve of this hierarchy launches: one per format of
     its operators, and DIA for the float64 residual of the stencil A."""
@@ -586,10 +786,7 @@ def drive_solve(torch, dh, A, b, what, kernels, limit=None):
         raise AssertionError("solution is not finite or has the wrong shape")
     if hist[-1] > 1e-8 or relres > 1e-8 or (limit is not None and k > limit):
         raise AssertionError(f"{what}: no 1e-8 within {limit}: {hist}")
-    idle = [name for name in path_kernels(dh) if launches[name] == 0]
-    if idle:
-        raise AssertionError(f"{what}: kernels of the path did not run: "
-                             f"{idle} ({launches})")
+    require_launches(what, launches, path_kernels(dh))
     return k, launches, solve_s
 
 
@@ -706,6 +903,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048, help="2-D grid side")
     ap.add_argument("--n3", type=int, default=128, help="3-D grid side")
+    ap.add_argument("--nk", type=int, default=512,
+                    help="grid side of the 2-D SOR and Krylov phase")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -892,6 +1091,11 @@ def main(argv=None):
     del cases, packed
     phase("3-D kernels", t0)
 
+    # 10. the reference's SOR example and the Krylov solvers
+    t0 = time.perf_counter()
+    summaryk = sor_krylov(torch, args.nk, kernels, by_path)
+    phase("2-D SOR and Krylov", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -913,7 +1117,8 @@ def main(argv=None):
             "launches_by_path": {p: v[name] for p, v in by_path.items()},
             "launches_per_vcycle": {
                 "2d": summary2["launches_per_vcycle"][name],
-                "3d": cyc3["launches_per_vcycle"][name]},
+                "3d": cyc3["launches_per_vcycle"][name],
+                "2d_sor": summaryk["launches_per_sor_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -934,7 +1139,8 @@ def main(argv=None):
                 "solve_refinements_random": len(hist3r) - 1,
                 "solve_launches_random": solve_launches3, **cyc3,
                 "transfer": transfer}
-    print(json.dumps({"2d": summary2, "3d": summary3, "copy_gbs": copy_gbs,
+    print(json.dumps({"2d": summary2, "3d": summary3,
+                      "2d_sor_krylov": summaryk, "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))
     print(smi)

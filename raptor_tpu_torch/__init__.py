@@ -9,14 +9,18 @@ repository's ``csrc/setup_kernels.cpp`` itself, so both packages build
 bit-identical hierarchies.
 
 - **Setup** (host): ``multilevel.par_multilevel.ParRugeStubenSolver``
-  (classical strength, RS/Falgout splitting, modified-classical
-  interpolation, native Galerkin products, dense coarse LU).
+  (classical strength, RS/CLJP/Falgout/PMIS/HMIS splitting, direct,
+  modified-classical and extended+i interpolation, native Galerkin
+  products, dense coarse LU).
 - **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
   packs every level into stacked-shard ``[S, ...]`` tensors
-  (``device.par.device_put_matrix``) and runs V-cycles with a Chebyshev
-  smoother. SpMVs in DIA and BDIA format launch the hand-written CUDA
-  kernels in ``csrc/`` (``device.kernels``); on CPU tensors the same
-  wrappers run the plain PyTorch versions in ``device.formats``.
+  (``device.par.device_put_matrix``) and runs V-cycles with any smoother
+  of ``device.relax``; ``krylov`` holds CG, BiCGStab and GMRES, with
+  ``DeviceHierarchy.precond_pack()`` as their AMG preconditioner. SpMVs
+  in DIA, BDIA, windowed-ELL, sorted-scatter and BELL format launch the
+  hand-written CUDA kernels in ``csrc/`` (``device.kernels``); on CPU
+  tensors the same wrappers run the plain PyTorch versions in
+  ``device.formats``.
 
 Device entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is asked for and absent.

@@ -41,15 +41,19 @@ def matrix_from_numpy(m: MatrixArrays) -> ParCSRMatrix:
 def hierarchy_from_numpy(
         levels: Sequence[Tuple[MatrixArrays, Optional[MatrixArrays]]],
         coarse_lu: Tuple[np.ndarray, np.ndarray],
-        num_smooth_sweeps: int = 1) -> ParMultilevel:
+        num_smooth_sweeps: int = 1,
+        relax_type: RelaxType = RelaxType.Chebyshev,
+        relax_weight: float = 1.0) -> ParMultilevel:
     """A ``ParMultilevel`` from per-level ``(A, P)`` arrays (P is None on
     the coarsest level) and scipy's ``lu_factor`` output ``(lu, piv)`` of
-    the coarsest A, with 0-based pivots; smoothed by Chebyshev of degree
-    ``num_smooth_sweeps``."""
+    the coarsest A, with 0-based pivots; smoothed by ``relax_type`` with
+    ``num_smooth_sweeps`` sweeps (Chebyshev: its degree) and weight
+    ``relax_weight``."""
     if not levels or levels[-1][1] is not None:
         raise ValueError("the coarsest level must have no P")
-    ml = ParMultilevel(relax_type=RelaxType.Chebyshev)
+    ml = ParMultilevel(relax_type=relax_type)
     ml.num_smooth_sweeps = num_smooth_sweeps
+    ml.relax_weight = relax_weight
     ml.levels = [Level(A=matrix_from_numpy(a),
                        P=None if p is None else matrix_from_numpy(p))
                  for a, p in levels]

@@ -1,10 +1,10 @@
 """Device-resident AMG hierarchy and V-cycle solve (copy of
-raptor_tpu.multilevel.device_hierarchy: construction, V-cycle, solve and
-mixed-precision refinement).
+raptor_tpu.multilevel.device_hierarchy: construction, V-cycle, solve,
+mixed-precision refinement and the preconditioner of the Krylov solvers).
 
 The solve-phase half of ParMultilevel (multilevel/par_multilevel.hpp:
 335-540): every level becomes a stacked-shard device plan (matrix,
-Chebyshev plan, prolongator P and its transpose; restriction is a forward
+smoother plan, prolongator P and its transpose; restriction is a forward
 SpMV on the packed P^T). The iteration is a Python loop that reads the
 residual norm back once per cycle for the convergence test. The dense
 coarse solve (par_multilevel.hpp:223-333, :347-369) gathers the coarse
@@ -23,8 +23,17 @@ from raptor_tpu_torch.core.types import RelaxType
 from raptor_tpu_torch.device import par as dpar
 from raptor_tpu_torch.device.par import (
     DeviceParCSR, bdia_tile_share, device_put_matrix, spmv)
-from raptor_tpu_torch.device.relax import DeviceRelax, build_relax, chebyshev
+from raptor_tpu_torch.device.relax import RELAX_FNS, DeviceRelax, build_relax
 from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
+
+RELAX_NAME = {RelaxType.Jacobi: "jacobi", RelaxType.SOR: "sor",
+              RelaxType.SSOR: "ssor", RelaxType.MCSOR: "mc_sor",
+              RelaxType.MCSSOR: "mc_ssor", RelaxType.L1Jacobi: "l1_jacobi",
+              RelaxType.Chebyshev: "chebyshev"}
+# the heavy plans each smoother reads (device.relax.build_relax)
+RELAX_NEED = {"jacobi": ("tri",), "sor": ("tri",), "ssor": ("tri",),
+              "mc_sor": ("color",), "mc_ssor": ("color",),
+              "l1_jacobi": (), "chebyshev": ()}
 
 
 @dataclasses.dataclass
@@ -69,17 +78,14 @@ class DeviceHierarchy:
 
     def __init__(self, ml: ParMultilevel, dtype=torch.float64,
                  lane_pad: int = None, device="cuda"):
-        if ml.relax_type != RelaxType.Chebyshev:
-            raise NotImplementedError(
-                f"{ml.relax_type}: the port's device smoother is "
-                f"Chebyshev; Jacobi/SOR/SSOR/l1 and the multicolour sweeps "
-                f"come with a later slice")
         self.device = dpar.resolve_device(device)
         if lane_pad is None:
             lane_pad = 128 if self.device.type == "cuda" else 1
         self.lane_pad = lane_pad
         self.dtype = dtype
+        self.relax_kind = RELAX_NAME[ml.relax_type]
         self.num_smooth_sweeps = ml.num_smooth_sweeps
+        self.relax_weight = ml.relax_weight
         self.solve_tol = ml.solve_tol
         self.max_iterations = ml.max_iterations
         # stagnation guard of ``solve``: stall_run consecutive cycles, each
@@ -101,7 +107,8 @@ class DeviceHierarchy:
                 dP = device_put_matrix(lvl.P, embed="cols", **put)
                 dPt = device_put_matrix(lvl.P.transpose(), embed="rows",
                                         **put)
-            levels.append(DeviceLevel(dA, build_relax(lvl.A, dA), dP, dPt))
+            dRX = build_relax(lvl.A, dA, need=RELAX_NEED[self.relax_kind])
+            levels.append(DeviceLevel(dA, dRX, dP, dPt))
         self.levels: Tuple[DeviceLevel, ...] = tuple(levels)
 
         # dense coarse LU: scipy's 0-based pivots are sequential row swaps,
@@ -120,6 +127,7 @@ class DeviceHierarchy:
         self.rows_pad = self.levels[0].A.rows_pad
         self._fine_A = ml.levels[0].A
         self._dA64 = None
+        self._precond = None
 
     def format_summary(self) -> List[str]:
         """One line per level: its rows and the packed format of A, P and
@@ -141,6 +149,13 @@ class DeviceHierarchy:
         return lines
 
     # --- the cycle --------------------------------------------------------------
+    def relax(self, lvl: DeviceLevel, x: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+        """The hierarchy's smoother on one level."""
+        return RELAX_FNS[self.relax_kind](lvl.A, lvl.RX, x, b,
+                                          self.num_smooth_sweeps,
+                                          self.relax_weight)
+
     def coarse_solve(self, row_mask: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
         """Gather every shard's coarse rhs and solve densely
@@ -156,14 +171,14 @@ class DeviceHierarchy:
         lvl = self.levels[level]
         if level == len(self.levels) - 1:
             return self.coarse_solve(lvl.A.row_mask, b)
-        x = chebyshev(lvl.A, lvl.RX, x, b, self.num_smooth_sweeps)
+        x = self.relax(lvl, x, b)
         r = b - spmv(lvl.A, x)
         bc = spmv(lvl.Pt, r)                     # restriction
         xc = torch.zeros((bc.shape[0], lvl.Pt.rows_pad), dtype=b.dtype,
                          device=b.device)
         xc = self.vcycle(xc, bc, level + 1)
         x = x + spmv(lvl.P, xc)                  # prolongation
-        return chebyshev(lvl.A, lvl.RX, x, b, self.num_smooth_sweeps)
+        return self.relax(lvl, x, b)
 
     # --- solves ----------------------------------------------------------------
     def solve(self, x: torch.Tensor, b: torch.Tensor) -> SolveResult:
@@ -231,6 +246,21 @@ class DeviceHierarchy:
         if return_device:
             return x, hist
         return dpar.host_vector(x, self.row_bounds), hist
+
+    # --- use as a Krylov preconditioner ----------------------------------------
+    def precond_pack(self):
+        """One V-cycle as the preconditioner ``precond(x0, r)`` of the
+        Krylov solvers (PCG par_cg.cpp:121, Pre_BiCGStab
+        par_bicgstab.cpp:240), cached on the hierarchy. The cycle runs in
+        the hierarchy's dtype and the correction is cast back to
+        ``r.dtype``, so a float64 Krylov loop can use a float32
+        hierarchy."""
+        if self._precond is None:
+            def precond(x0: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+                return self.vcycle(x0.to(self.dtype),
+                                   r.to(self.dtype)).to(r.dtype)
+            self._precond = precond
+        return self._precond
 
     # --- vector helpers ---------------------------------------------------------
     def vector(self, v: np.ndarray) -> torch.Tensor:

@@ -1,6 +1,7 @@
 """Host AMG setup (copy of raptor_tpu.multilevel.par_multilevel:
-Ruge-Stuben with RS/PMIS/HMIS coarsening, modified-classical or extended+i
-interpolation, and the host Galerkin product).
+Ruge-Stuben with RS/CLJP/Falgout/PMIS/HMIS coarsening, direct,
+modified-classical or extended+i interpolation, and the host Galerkin
+product).
 
 ``ParMultilevel`` (multilevel/par_multilevel.hpp:69-661) holds the knobs
 and the levels; ``ParRugeStubenSolver``
@@ -36,6 +37,7 @@ class ParMultilevel:
         self.strong_threshold = strong_threshold
         self.relax_type = relax_type
         self.num_smooth_sweeps = 1
+        self.relax_weight = 1.0
         self.max_coarse = 50
         self.max_levels = 25
         self.weights: Optional[np.ndarray] = None
@@ -96,33 +98,30 @@ class ParMultilevel:
 
 class ParRugeStubenSolver(ParMultilevel):
     """ruge_stuben/par_ruge_stuben_solver.hpp:12-177, single-variable with
-    classical strength: RS (RS below level 3, Falgout from there), PMIS or
-    HMIS coarsening, and modified-classical or extended+i interpolation.
-    Extended+i is filtered with ``interp_filter`` under every coarsening
-    (par_ruge_stuben_solver.hpp:121). CLJP and Falgout as the coarsening,
-    direct interpolation and symmetric strength belong to a later slice of
-    the port."""
+    classical strength: RS (RS below level 3, Falgout from there), CLJP,
+    Falgout, PMIS or HMIS coarsening, and direct, modified-classical or
+    extended+i interpolation. Extended+i is filtered with ``interp_filter``
+    under every coarsening (par_ruge_stuben_solver.hpp:121). Symmetric
+    strength belongs with smoothed aggregation, a later slice of the
+    port."""
 
-    COARSENINGS = (CoarsenType.RS, CoarsenType.PMIS, CoarsenType.HMIS)
-    INTERPOLATIONS = {InterpType.ModClassical: "mod_classical",
+    SPLITS = {CoarsenType.CLJP: cf.split_cljp,
+              CoarsenType.Falgout: cf.split_falgout,
+              CoarsenType.PMIS: cf.split_pmis,
+              CoarsenType.HMIS: cf.split_hmis}
+    INTERPOLATIONS = {InterpType.Direct: "direct",
+                      InterpType.ModClassical: "mod_classical",
                       InterpType.Extended: "extended"}
 
     def __init__(self, strong_threshold: float = 0.0,
                  coarsen_type: CoarsenType = CoarsenType.RS,
-                 interp_type: InterpType = InterpType.ModClassical,
+                 interp_type: InterpType = InterpType.Direct,
                  strength_type: StrengthType = StrengthType.Classical,
                  relax_type: RelaxType = RelaxType.SOR):
-        if coarsen_type not in self.COARSENINGS:
-            raise NotImplementedError(
-                f"{coarsen_type}: the port runs RS, PMIS and HMIS "
-                f"coarsening; CLJP and Falgout come with a later slice")
-        if interp_type not in self.INTERPOLATIONS:
-            raise NotImplementedError(
-                f"{interp_type}: the port runs modified-classical and "
-                f"extended+i interpolation; direct comes with a later slice")
         if strength_type != StrengthType.Classical:
             raise NotImplementedError(
-                f"{strength_type}: the port runs classical strength")
+                f"{strength_type}: the port runs classical strength; "
+                f"symmetric strength comes with smoothed aggregation")
         super().__init__(strong_threshold, relax_type)
         self.coarsen_type = coarsen_type
         self.interp_type = interp_type
@@ -134,10 +133,8 @@ class ParRugeStubenSolver(ParMultilevel):
         a = self.levels[level_ctr].A
         s = strength(a, self.strong_threshold)
         w = self.weights[:a.global_num_rows]
-        if self.coarsen_type == CoarsenType.PMIS:
-            states = cf.split_pmis(s, w)
-        elif self.coarsen_type == CoarsenType.HMIS:
-            states = cf.split_hmis(s, w)
+        if self.coarsen_type in self.SPLITS:
+            states = self.SPLITS[self.coarsen_type](s, w)
         elif level_ctr < 3:
             # RS: split_rs below level 3, then Falgout (:76-86)
             states = cf.split_rs_entry(s)

@@ -8,7 +8,8 @@ build directory, and binds only the entry points the port's setup calls:
 classical strength, the split pattern, the RS passes, the CLJP loop,
 mark-strong, modified-classical interpolation, glibc ``rand()``, the
 stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
-interpolation and its pattern bound. Both packages then build
+interpolation and its pattern bound, and the smoothers' greedy colouring
+and triangular level schedule. Both packages then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
 """
@@ -98,10 +99,13 @@ def load():
         lib.stencil_csr.restype = _i64
         lib.finalize_interp.argtypes = [_i64, _i64, I64, I64, F64, I64,
                                         _i64, I64]
+        lib.greedy_coloring.argtypes = [_i64, I64, I64, I64]
+        lib.greedy_coloring.restype = _i64
+        lib.level_schedule.argtypes = [_i64, I64, I64, _i64, I64]
         for fn in (lib.rs_first_pass, lib.rs_second_pass,
                    lib.cljp_main_loop, lib.pmis_main_loop, lib.mark_strong,
                    lib.glibc_rand_doubles, lib.spgemm_fetch,
-                   lib.finalize_interp):
+                   lib.finalize_interp, lib.level_schedule):
             fn.restype = None
         _lib = lib
         return _lib
@@ -227,6 +231,31 @@ def finalize_interp(n, rows, cols, vals, col_map, do_sort):
                         _p(vals, F64), _p(col_map, I64), int(do_sort),
                         _p(indptr, I64))
     return indptr, cols.copy(), vals.copy()
+
+
+def greedy_coloring(indptr, indices) -> np.ndarray:
+    """Greedy colouring in row order (smallest colour no coloured
+    neighbour holds) of a symmetric CSR pattern: int64 colours."""
+    lib = load()
+    indptr, indices = _c(indptr), _c(indices)
+    n = len(indptr) - 1
+    colors = np.full(n, -1, dtype=np.int64)
+    lib.greedy_coloring(n, _p(indptr, I64), _p(indices, I64),
+                        _p(colors, I64))
+    return colors
+
+
+def level_schedule(indptr, indices, reverse: bool) -> np.ndarray:
+    """Dependency level of each row of a strictly triangular CSR block:
+    1 + the highest level among its columns, 0 for an empty row; rows
+    ascending (lower triangle) or, with ``reverse``, descending (upper)."""
+    lib = load()
+    indptr, indices = _c(indptr), _c(indices)
+    n = len(indptr) - 1
+    level = np.zeros(n, dtype=np.int64)
+    lib.level_schedule(n, _p(indptr, I64), _p(indices, I64),
+                       int(reverse), _p(level, I64))
+    return level
 
 
 def glibc_rand_doubles(seed: int, n: int) -> np.ndarray:

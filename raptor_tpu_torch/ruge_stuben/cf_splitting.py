@@ -1,6 +1,5 @@
-"""CF splitting: Ruge-Stuben, Falgout (with the CLJP loop it runs), PMIS
-and HMIS (copy of raptor_tpu.ruge_stuben.cf_splitting, native paths
-only).
+"""CF splitting: Ruge-Stuben, CLJP, Falgout, PMIS and HMIS (copy of
+raptor_tpu.ruge_stuben.cf_splitting, native paths only).
 
 Run globally on the host at setup time (ruge_stuben/cf_splitting.cpp,
 par_cf_splitting.cpp:60-163); the device consumes only the resulting
@@ -73,6 +72,14 @@ def split_rs_entry(s: ParCSRMatrix):
     s = s.global_csr
     pat = _pattern(s)
     return split_rs(s, set_initial_states(s, pat), pat)
+
+
+def split_cljp(s: ParCSRMatrix, rand_vals):
+    """CLJP: initial states, then the CLJP loop (cf_splitting.cpp:502-577)
+    over the global matrix."""
+    s = s.global_csr
+    pat = _pattern(s)
+    return cljp_main_loop(s, set_initial_states(s, pat), rand_vals, pat)
 
 
 def split_falgout(s: ParCSRMatrix, rand_vals):

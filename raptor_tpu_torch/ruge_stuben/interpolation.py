@@ -1,12 +1,15 @@
-"""Modified-classical and extended+i interpolation (copy of
-raptor_tpu.ruge_stuben.interpolation: the native host kernels, the
-row-sum-preserving filter and the ``par_interpolation`` partition rule).
+"""Direct, modified-classical and extended+i interpolation (copy of
+raptor_tpu.ruge_stuben.interpolation: the direct row algorithm, the native
+host kernels, the row-sum-preserving filter and the ``par_interpolation``
+partition rule).
 
-The native kernels have the production (parallel) semantics of the
-reference's par_interpolation.cpp (:301-1010 extended+i, :1012-1400
-modified classical); they run globally on the host, so the result does not
-depend on the shard count. The device interpolation engines belong to a
-later slice of the port.
+Direct interpolation is the reference's serial row algorithm
+(ruge_stuben/interpolation.cpp:443-597) over the global matrix. The native
+kernels have the production (parallel) semantics of the reference's
+par_interpolation.cpp (:301-1010 extended+i, :1012-1400 modified
+classical). All run globally on the host, so the result does not depend
+on the shard count. The device interpolation engines belong to a later
+slice of the port.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import ZERO_TOL, CFState
 
-S_ = CFState.Selected
+S_, F = CFState.Selected, CFState.Unselected
 
 
 def _coarse_map(states):
@@ -37,6 +40,70 @@ def _strong_flags(a: CSRMatrix, s: CSRMatrix):
     strong = native.mark_strong(a_indptr, a_indices, s_indptr, s_indices,
                                 a.n_rows)
     return a_indptr, a_indices, a_data, strong
+
+
+def direct_interpolation(a: CSRMatrix, s: CSRMatrix,
+                         states: np.ndarray) -> CSRMatrix:
+    """interpolation.cpp:443-597. For each F row: P_ij = -(alpha|beta)*a_ij/d
+    over strong coarse cols, alpha = (sum all neg off-diag)/(sum strong neg
+    coarse), beta likewise for pos (if no strong pos, pos sum folds into the
+    diagonal instead)."""
+    n = a.n_rows
+    col_to_new, n_coarse = _coarse_map(states)
+    diag = a.diagonal()
+
+    # the reference re-reads A's values on S's pattern: mark A's positions
+    # that are strong
+    strong_mask = native.mark_strong(a.indptr, a.indices, s.indptr,
+                                     s.indices, a.n_rows).astype(bool)
+
+    rows_all, cols_all, data_all = a.row_ids(), a.indices, a.data
+    offd = rows_all != cols_all
+    neg = data_all < 0
+
+    def _rowsum(mask):
+        return np.bincount(rows_all[mask], weights=data_all[mask],
+                           minlength=n)
+
+    sum_all_neg = _rowsum(offd & neg)
+    sum_all_pos = _rowsum(offd & ~neg)
+
+    s_coarse = strong_mask & offd & (states[cols_all] == S_)
+    sum_strong_neg = _rowsum(s_coarse & neg)
+    sum_strong_pos = _rowsum(s_coarse & ~neg)
+
+    with np.errstate(divide="ignore", invalid="ignore"):
+        alpha = sum_all_neg / sum_strong_neg
+    no_pos = sum_strong_pos == 0
+    eff_diag = np.where(no_pos, diag + sum_all_pos, diag)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        beta = np.where(no_pos, 0.0, sum_all_pos / sum_strong_pos)
+    neg_coeff = -alpha / eff_diag
+    pos_coeff = -beta / eff_diag
+
+    # P entries: C rows get identity; F rows get coeff * a_ij at strong
+    # coarse cols (row order preserved = ascending col)
+    p_rows = rows_all[s_coarse]
+    p_cols = cols_all[s_coarse]
+    p_vals_raw = data_all[s_coarse]
+    p_vals = np.where(p_vals_raw < 0, neg_coeff[p_rows] * p_vals_raw,
+                      pos_coeff[p_rows] * p_vals_raw)
+    f_rows_mask = states[p_rows] == F
+    p_rows, p_cols, p_vals = (p_rows[f_rows_mask], p_cols[f_rows_mask],
+                              p_vals[f_rows_mask])
+
+    c_rows = np.nonzero(states == S_)[0]
+    all_rows = np.concatenate([p_rows, c_rows])
+    all_cols = np.concatenate([col_to_new[p_cols], col_to_new[c_rows]])
+    all_vals = np.concatenate([p_vals, np.ones(len(c_rows))])
+
+    # no duplicate (row, col) pairs: p entries come from distinct A
+    # positions of F rows, c entries are identity rows of C points
+    order = np.lexsort((all_cols, all_rows))
+    indptr = np.concatenate(
+        ([0], np.cumsum(np.bincount(all_rows, minlength=n),
+                        dtype=np.int64)))
+    return CSRMatrix(n, n_coarse, indptr, all_cols[order], all_vals[order])
 
 
 def mod_classical_interpolation(a: CSRMatrix, s: CSRMatrix,
@@ -104,13 +171,15 @@ def filter_interp(p: CSRMatrix, filter_threshold: float) -> CSRMatrix:
     return CSRMatrix.from_scipy(out)
 
 
-_KINDS = {"mod_classical": mod_classical_interpolation,
+_KINDS = {"direct": direct_interpolation,
+          "mod_classical": mod_classical_interpolation,
           "extended": extended_interpolation}
 
 
 def par_interpolation(a: ParCSRMatrix, s: ParCSRMatrix, states,
-                      kind: str = "mod_classical") -> ParCSRMatrix:
-    """P of the given ``kind`` ("mod_classical" or "extended") with the
+                      kind: str = "direct") -> ParCSRMatrix:
+    """P of the given ``kind`` ("direct", "mod_classical" or "extended")
+    with the
     reference's partition: A's rows, and coarse columns owned where their
     fine C-points live."""
     if kind not in _KINDS:

@@ -13,6 +13,7 @@ from raptor_tpu.gallery.stencils import (
     diffusion_stencil_2d, laplace_stencil_27pt, par_stencil_grid)
 from raptor_tpu.multilevel.par_multilevel import ParRugeStubenSolver
 from raptor_tpu_torch import convert
+from raptor_tpu_torch.core.types import RelaxType as TRelaxType
 
 ANISO = (0.001, np.pi / 8)
 
@@ -26,10 +27,23 @@ def aniso(n: int, n_shards: int):
 def jax_hierarchy(n: int, n_shards: int, sweeps: int = 3):
     """RS + modified classical, theta 0.25, Chebyshev: the flagship
     configuration, with the host engines (the port has no device setup)."""
-    ml = ParRugeStubenSolver(0.25, CoarsenType.RS, InterpType.ModClassical,
-                             relax_type=RelaxType.Chebyshev)
+    return jax_rs(n, n_shards, "RS", "ModClassical", "Chebyshev", sweeps)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_rs(n: int, n_shards: int, coarsen: str = "CLJP",
+           interp: str = "ModClassical", relax: str = "SOR",
+           sweeps: int = 1, max_levels: int = 25):
+    """The 2-D problem under any Ruge-Stuben coarsening, interpolation and
+    smoother (names of the JAX package's enums), theta 0.25, host
+    engines; the default is the reference's example run (CLJP + modified
+    classical + SOR(1))."""
+    ml = ParRugeStubenSolver(0.25, getattr(CoarsenType, coarsen),
+                             getattr(InterpType, interp),
+                             relax_type=getattr(RelaxType, relax))
     ml.rap_mode = ml.interp_mode = "host"
     ml.num_smooth_sweeps = sweeps
+    ml.max_levels = max_levels
     ml.setup(aniso(n, n_shards))
     return ml
 
@@ -61,12 +75,13 @@ def to_port(m):
 
 
 def port_hierarchy(ml):
-    """The JAX (Chebyshev) hierarchy carried across into the port."""
-    assert ml.relax_type == RelaxType.Chebyshev
+    """The JAX hierarchy carried across into the port, with its smoother,
+    sweeps and weight."""
     levels = [(arrays(lvl.A), None if lvl.P is None else arrays(lvl.P))
               for lvl in ml.levels]
-    return convert.hierarchy_from_numpy(levels, ml.coarse_lu,
-                                        ml.num_smooth_sweeps)
+    return convert.hierarchy_from_numpy(
+        levels, ml.coarse_lu, ml.num_smooth_sweeps,
+        TRelaxType[ml.relax_type.name], ml.relax_weight)
 
 
 def assert_same_matrix(t, j):
