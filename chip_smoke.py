@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (raptor_tpu_torch) through its main path
 on one NVIDIA card, and check what comes out.
 
-    python3 chip_smoke.py [--n 2048] [--n3 128] [--nk 512] [--seed 0]
+    python3 chip_smoke.py [--n 2048] [--n3 128] [--nk 512] [--sa 128 64]
+                          [--seed 0]
 
 Phases, each printed as it ends; any failure ends the run with a non-zero
 exit code and no result line:
@@ -52,7 +53,19 @@ exit code and no result line:
    AMG-preconditioned GMRES(30) to 1e-5, plain CG and BiCGStab to 1e-5 on
    the float64 operator, and a float64 CG with the float32 V-cycle as its
    preconditioner to 1e-11; each must reach its tolerance within its cap.
-   Plain CG in float32 is run and printed, not held to 1e-5.
+   Plain CG in float32 is run and printed, not held to 1e-5;
+11. smoothed aggregation, at each side of ``--sa`` (bench.py:bench_sa's
+   configuration): the 27-point Laplacian, symmetric strength with theta
+   0, MIS(2) aggregation, one candidate, Jacobi prolongation (weight 4/3,
+   one step), Chebyshev(2), set up on the host with its phase split
+   (``print_setup_times``), packed in float32 with every level's format,
+   and solved by mixed-precision refinement to 1e-8 with b = A 1. At 128^3
+   and 64^3 the level sizes must be the JAX package's and the refinements
+   at most its count + 1 (the sorted scatter's float32 atomics sum in an
+   order that varies). Then one V-cycle's device, enqueue and busy time,
+   per-level times and launches, and the kernels of SA's own operators
+   against their plain versions: windowed ELL on the 128^3 P0 and P^T0,
+   BDIA on the 128^3 A1 and P1, the sorted scatter on the 64^3 P^T0.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -605,6 +618,90 @@ SMOOTHERS = ("SSOR", "Jacobi", "L1Jacobi", "MCSOR", "MCSSOR")
 SMOOTHER_CYCLES = 10
 
 
+# phase 11: the JAX package's smoothed-aggregation level sizes and its
+# refinements to 1e-8 (float32 hierarchy, b = A 1; the port may take one
+# more), from a CPU run of the JAX package at side N:
+#   JAX_PLATFORMS=cpu python -c "import sys, numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.aggregation.solver import ParSmoothedAggregationSolver \
+#   as SA; from raptor_tpu.core.types import RelaxType; from \
+#   raptor_tpu.device.par import make_mesh; from raptor_tpu.gallery.stencils \
+#   import laplace_stencil_27pt as L, par_stencil_grid as G; from \
+#   raptor_tpu.multilevel.device_hierarchy import DeviceHierarchy as DH; \
+#   n = int(sys.argv[1]); A = G(L(), (n,) * 3, 1); ml = SA(0.0, \
+#   relax_type=RelaxType.Chebyshev); ml.num_smooth_sweeps = 2; \
+#   ml.rap_mode = 'host'; ml.setup(A); b = A.mult(np.ones(n ** 3)); _, h = \
+#   DH(ml, make_mesh(1), dtype=jnp.float32).solve_mixed(np.zeros(n ** 3), \
+#   b, tol=1e-8, max_iter=200); print([l.A.global_num_rows for l in \
+#   ml.levels], len(h) - 1, h[-1])" N
+SA_LEVELS = {64: [262144, 6101, 89, 1], 128: [2097152, 46779, 549, 8]}
+SA_REFINEMENTS = {64: 27, 128: 44}
+# the operators whose kernels phase 11 checks at each of its two sides, and
+# the formats the card's rules give them at 128^3 and 64^3
+SA_CHECKS = {"3d_sa": ("P0", "Pt0", "A1", "P1"), "3d_sa64": ("Pt0",)}
+SA_FORMATS = {128: {"P0": "well", "Pt0": "well", "A1": "bdia", "P1": "bdia"},
+              64: {"Pt0": "wellt"}}
+
+
+def sa_setup(n):
+    """bench.py:bench_sa's smoothed-aggregation setup on the n^3 27-point
+    Laplacian, one shard."""
+    from raptor_tpu_torch.aggregation.solver import (
+        ParSmoothedAggregationSolver)
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.gallery.stencils import (
+        laplace_stencil_27pt, par_stencil_grid)
+    A = par_stencil_grid(laplace_stencil_27pt(), (n, n, n), 1)
+    ml = ParSmoothedAggregationSolver(0.0, relax_type=RelaxType.Chebyshev)
+    ml.num_smooth_sweeps = 2
+    ml.setup(A)
+    return A, ml
+
+
+def smoothed_aggregation(torch, n, kernels, by_path, key):
+    """Phase 11 at side n (see the module docstring): setup, packing and
+    the float32 solve, with its launches under ``by_path[key + "_solve"]``;
+    returns (summary, device hierarchy, host hierarchy)."""
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    t0 = time.perf_counter()
+    A, ml = sa_setup(n)
+    setup_s = time.perf_counter() - t0
+    print(ml.print_hierarchy())
+    print(ml.print_setup_times())
+    sizes = [lvl.A.global_num_rows for lvl in ml.levels]
+    print(f"SA setup at {n}^3: {ml.num_levels} levels {sizes} in "
+          f"{setup_s:.3f} s")
+    if n in SA_LEVELS and sizes != SA_LEVELS[n]:
+        raise AssertionError(f"SA levels at {n}^3 {sizes}, the JAX "
+                             f"package's {SA_LEVELS[n]}")
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy(ml, dtype=torch.float32)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    print(f"SA device hierarchy (float32, lane_pad {dh.lane_pad}): "
+          f"{pack_s:.3f} s")
+    formats = dh.format_summary()
+    print("\n".join(formats))
+    b = A.mult(np.ones(n ** 3))
+    limit = SA_REFINEMENTS[n] + 1 if n in SA_REFINEMENTS else None
+    k, by_path[f"{key}_solve"], solve_s = drive_solve(
+        torch, dh, A, b, f"SA {n}^3, b = A 1", kernels, limit=limit)
+    t0 = time.perf_counter()
+    _, hist = dh.solve_mixed(np.zeros(n ** 3), b, tol=1e-8, max_iter=100,
+                             return_device=True)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"solve (SA {n}^3, warm): {len(hist) - 1} refinements in "
+          f"{warm_s:.3f} s")
+    cyc = cycle_report(torch, dh, b, kernels)
+    return ({"n": n, "levels": sizes, "setup_s": setup_s,
+             "setup_phases": ml.setup_level_times, "pack_s": pack_s,
+             "formats": formats, "solve_refinements_ones": k,
+             "jax_refinements": SA_REFINEMENTS.get(n),
+             "solve_s_first": solve_s, "solve_s_warm": warm_s, **cyc},
+            dh, ml)
+
+
 def sor_krylov(torch, nk, kernels, by_path):
     """Phase 10 (see the module docstring); returns its summary."""
     from raptor_tpu_torch.core.types import RelaxType
@@ -905,6 +1002,11 @@ def main(argv=None):
     ap.add_argument("--n3", type=int, default=128, help="3-D grid side")
     ap.add_argument("--nk", type=int, default=512,
                     help="grid side of the 2-D SOR and Krylov phase")
+    ap.add_argument("--sa", type=int, nargs=2, default=[128, 64],
+                    metavar=("N_WELL", "N_WELLT"),
+                    help="grid sides of the smoothed-aggregation phase: "
+                    "windowed ELL and BDIA are checked on the first one's "
+                    "operators, the sorted scatter on the second's")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1096,6 +1198,35 @@ def main(argv=None):
     summaryk = sor_krylov(torch, args.nk, kernels, by_path)
     phase("2-D SOR and Krylov", t0)
 
+    # 11. smoothed aggregation: the solve at both sides, then the kernels
+    # on SA's own operators
+    t0 = time.perf_counter()
+    summary_sa = {}
+    cases = []
+    for n_sa, key in zip(args.sa, ("3d_sa", "3d_sa64")):
+        summary_sa[key], dhs, mls = smoothed_aggregation(
+            torch, n_sa, kernels, by_path, key)
+        per_cycle = summary_sa[key]["launches_per_vcycle"]
+        ops = {label: (M, host, embed)
+               for label, M, host, embed in operators(dhs, mls)}
+        for label in SA_CHECKS[key]:
+            M, host, embed = ops[label]
+            want = SA_FORMATS.get(n_sa, {}).get(label)
+            if want is not None and M.on_format != want:
+                raise AssertionError(f"SA {n_sa}^3 {label} packed as "
+                                     f"{M.on_format}, not {want}")
+            name = FORMAT_KERNEL.get(M.on_format)
+            if name is None:
+                continue
+            if not per_cycle[name]:
+                raise AssertionError(f"SA {n_sa}^3: {name} ({label}) is not "
+                                     f"in the V-cycle: {per_cycle}")
+            cases.append((name, f"SA {n_sa}^3 {label}", M, host(), embed))
+        del dhs, mls, ops
+    run_checks(torch, cases, 128, gen, checks)
+    del cases
+    phase("smoothed aggregation", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -1118,7 +1249,10 @@ def main(argv=None):
             "launches_per_vcycle": {
                 "2d": summary2["launches_per_vcycle"][name],
                 "3d": cyc3["launches_per_vcycle"][name],
-                "2d_sor": summaryk["launches_per_sor_vcycle"][name]},
+                "2d_sor": summaryk["launches_per_sor_vcycle"][name],
+                "3d_sa": summary_sa["3d_sa"]["launches_per_vcycle"][name],
+                "3d_sa64": summary_sa["3d_sa64"]["launches_per_vcycle"][
+                    name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -1140,7 +1274,8 @@ def main(argv=None):
                 "solve_launches_random": solve_launches3, **cyc3,
                 "transfer": transfer}
     print(json.dumps({"2d": summary2, "3d": summary3,
-                      "2d_sor_krylov": summaryk, "copy_gbs": copy_gbs,
+                      "2d_sor_krylov": summaryk, "sa": summary_sa,
+                      "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))
     print(smi)

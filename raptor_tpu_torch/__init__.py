@@ -9,9 +9,12 @@ repository's ``csrc/setup_kernels.cpp`` itself, so both packages build
 bit-identical hierarchies.
 
 - **Setup** (host): ``multilevel.par_multilevel.ParRugeStubenSolver``
-  (classical strength, RS/CLJP/Falgout/PMIS/HMIS splitting, direct,
-  modified-classical and extended+i interpolation, native Galerkin
-  products, dense coarse LU).
+  (classical or symmetric strength, RS/CLJP/Falgout/PMIS/HMIS splitting,
+  direct, modified-classical and extended+i interpolation) and
+  ``aggregation.solver.ParSmoothedAggregationSolver`` (symmetric
+  strength, MIS(2) aggregation, tentative and Jacobi-smoothed
+  prolongation), both with native Galerkin products, a dense coarse LU
+  and setup phase timers (``setup_times``, ``print_setup_times``).
 - **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
   packs every level into stacked-shard ``[S, ...]`` tensors
   (``device.par.device_put_matrix``) and runs V-cycles with any smoother
@@ -26,4 +29,12 @@ Device entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is asked for and absent.
 """
 
+from raptor_tpu_torch.aggregation.solver import ParSmoothedAggregationSolver
+from raptor_tpu_torch.core.types import (
+    AggType, CoarsenType, InterpType, ProlongType, RelaxType, StrengthType)
+from raptor_tpu_torch.multilevel.par_multilevel import ParRugeStubenSolver
+
+__all__ = ["AggType", "CoarsenType", "InterpType", "ParRugeStubenSolver",
+           "ParSmoothedAggregationSolver", "ProlongType", "RelaxType",
+           "StrengthType"]
 __version__ = "0.1.0"

@@ -1,0 +1,90 @@
+"""Smoothed-aggregation AMG setup (copy of raptor_tpu.aggregation.solver,
+global setup; aggregation/par_smoothed_aggregation_solver.hpp:14-150).
+
+Each level: symmetric strength -> MIS(2) roots -> aggregates -> tentative
+prolongator from the near-nullspace candidates -> Jacobi-smoothed P ->
+P^T A P, all on the host over the global matrix, each stage under its
+setup phase timer."""
+
+from __future__ import annotations
+
+import numpy as np
+
+from raptor_tpu_torch.aggregation.aggregate import aggregate
+from raptor_tpu_torch.aggregation.candidates import fit_candidates
+from raptor_tpu_torch.aggregation.mis import mis2
+from raptor_tpu_torch.aggregation.prolongation import jacobi_prolongation
+from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+from raptor_tpu_torch.core.partition import Partition
+from raptor_tpu_torch.core.types import (
+    AggType, ProlongType, RelaxType, StrengthType)
+from raptor_tpu_torch.multilevel.level import Level
+from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
+from raptor_tpu_torch.ruge_stuben.strength import strength
+
+
+class ParSmoothedAggregationSolver(ParMultilevel):
+    """MIS(2) aggregation with one constant candidate and Jacobi
+    prolongation smoothing. ``setup_mode`` "global" (the default) is the
+    only one the port runs; "distributed" (per-shard stages over a
+    transport) waits for ROADMAP Queue 1's ``ruge_stuben/par_setup.py``
+    item and raises."""
+
+    def __init__(self, strong_threshold: float = 0.0,
+                 agg_type: AggType = AggType.MIS,
+                 prolong_type: ProlongType = ProlongType.JacobiProlongation,
+                 strength_type: StrengthType = StrengthType.Symmetric,
+                 relax_type: RelaxType = RelaxType.SOR,
+                 prolong_smooth_steps: int = 1,
+                 prolong_weight: float = 4.0 / 3.0):
+        super().__init__(strong_threshold, strength_type, relax_type)
+        self.agg_type = agg_type
+        self.prolong_type = prolong_type
+        self.num_candidates = 1
+        self.interp_tol = 1e-10
+        self.prolong_smooth_steps = prolong_smooth_steps
+        self.prolong_weight = prolong_weight
+        self.setup_mode = "global"
+        self.B: np.ndarray = None
+
+    def setup(self, af: ParCSRMatrix) -> None:
+        if self.setup_mode != "global":
+            raise NotImplementedError(
+                f"setup_mode={self.setup_mode!r}: the port runs the global "
+                f"setup only; the distributed one waits for ROADMAP Queue 1 "
+                f"item 16 (ruge_stuben/par_setup.py)")
+        self.B = np.ones(af.global_num_rows)
+        self.setup_helper(af)
+
+    def extend_hierarchy(self) -> None:
+        level_ctr = len(self.levels) - 1
+        a = self.levels[level_ctr].A
+        n = a.global_num_rows
+        w = self.weights[:n]
+
+        with self.setup_times.phase("strength"):
+            s = strength(a.global_csr, self.strength_type,
+                         self.strong_threshold)
+        with self.setup_times.phase("aggregation"):
+            states = mis2(s, w)
+            # the production solver passes no tie-break weights
+            # (par_smoothed_aggregation_solver.hpp:80)
+            n_aggs, aggs = aggregate(a.global_csr, s, states)
+        with self.setup_times.phase("candidates"):
+            t, r = fit_candidates(n_aggs, aggs, self.B[:n],
+                                  self.num_candidates, self.interp_tol)
+        with self.setup_times.phase("prolongation"):
+            p = jacobi_prolongation(a.global_csr, t, self.prolong_weight,
+                                    self.prolong_smooth_steps)
+
+        # coarse columns partitioned by root ownership (roots in row order)
+        row_bounds = a.partition.row_bounds
+        csum = np.concatenate([[0], np.cumsum(states > 0)])
+        col_bounds = csum[row_bounds].astype(np.int64)
+        pp = ParCSRMatrix(p, Partition(n, p.n_cols, a.partition.n_shards,
+                                       row_bounds, col_bounds))
+        self.levels[level_ctr].P = pp
+        with self.setup_times.phase("RAP"):
+            _, ac = self._galerkin(a, pp, need_ap=False)
+        self.levels.append(Level(A=ac))
+        self.B = r[:n_aggs * self.num_candidates]

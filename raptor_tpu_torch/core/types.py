@@ -30,6 +30,14 @@ class InterpType(enum.Enum):
     Extended = 2
 
 
+class AggType(enum.Enum):
+    MIS = 0
+
+
+class ProlongType(enum.Enum):
+    JacobiProlongation = 0
+
+
 class RelaxType(enum.Enum):
     Jacobi = 0
     SOR = 1

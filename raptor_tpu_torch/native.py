@@ -5,11 +5,12 @@ graph algorithms of the reference's setup phase behind a C ABI. This module
 compiles it, read-only, with the same flags as ``raptor_tpu.native``
 (``g++ -O3 -march=native -ffp-contract=off``) into the port's git-ignored
 build directory, and binds only the entry points the port's setup calls:
-classical strength, the split pattern, the RS passes, the CLJP loop,
-mark-strong, modified-classical interpolation, glibc ``rand()``, the
-stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
-interpolation and its pattern bound, and the smoothers' greedy colouring
-and triangular level schedule. Both packages then build
+classical and symmetric strength, the split pattern, the RS passes, the
+CLJP loop, mark-strong, modified-classical interpolation, glibc ``rand()``,
+the stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
+interpolation and its pattern bound, the smoothers' greedy colouring and
+triangular level schedule, and smoothed aggregation's MIS(2) and
+aggregation passes. Both packages then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
 """
@@ -92,6 +93,12 @@ def load():
         lib.classical_strength_csr.argtypes = [
             _i64, I64, I64, F64, ctypes.c_double, I64, _i64, I64, I64, F64]
         lib.classical_strength_csr.restype = _i64
+        lib.symmetric_strength_csr.argtypes = [
+            _i64, I64, I64, F64, ctypes.c_double, I64, I64, F64]
+        lib.symmetric_strength_csr.restype = _i64
+        lib.mis2.argtypes = [_i64] + [I64] * 4 + [F64, I64]
+        lib.aggregate.argtypes = [_i64] + [I64] * 4 + [F64, I64, F64, I64]
+        lib.aggregate.restype = _i64
         lib.split_pattern.argtypes = [_i64, _i64] + [I64] * 6
         lib.split_pattern.restype = _i64
         lib.stencil_csr.argtypes = [_i64, I64, _i64, I64, F64, I64, I64,
@@ -105,7 +112,7 @@ def load():
         for fn in (lib.rs_first_pass, lib.rs_second_pass,
                    lib.cljp_main_loop, lib.pmis_main_loop, lib.mark_strong,
                    lib.glibc_rand_doubles, lib.spgemm_fetch,
-                   lib.finalize_interp, lib.level_schedule):
+                   lib.finalize_interp, lib.level_schedule, lib.mis2):
             fn.restype = None
         _lib = lib
         return _lib
@@ -281,6 +288,67 @@ def classical_strength_csr(indptr, indices, data, theta):
         _p(variables, I64), int(num_variables), _p(out_indptr, I64),
         _p(out_indices, I64), _p(out_data, F64))
     return out_indptr, out_indices[:m], out_data[:m]
+
+
+def symmetric_strength_csr(indptr, indices, data, theta):
+    """Symmetric (smoothed-aggregation) strength S as a CSR: an
+    off-diagonal entry is kept when it is strong by its row's threshold or
+    by its column's (threshold + compress in one pass)."""
+    lib = load()
+    indptr, indices = _c(indptr), _c(indices)
+    data = _f(data)
+    n = len(indptr) - 1
+    out_indptr = np.empty(n + 1, dtype=np.int64)
+    out_indices = np.empty(len(indices), dtype=np.int64)
+    out_data = np.empty(len(indices))
+    m = lib.symmetric_strength_csr(
+        n, _p(indptr, I64), _p(indices, I64), _p(data, F64), float(theta),
+        _p(out_indptr, I64), _p(out_indices, I64), _p(out_data, F64))
+    return out_indptr, out_indices[:m], out_data[:m]
+
+
+def _check_out(a, n, name):
+    """An array the native code writes in place: contiguous int64 of n."""
+    if not (isinstance(a, np.ndarray) and a.dtype == np.int64
+            and a.flags.c_contiguous and a.shape == (n,)):
+        raise ValueError(f"{name} must be a contiguous int64 array of "
+                         f"{n} entries")
+
+
+def mis2(indptr, indices, cindptr, cindices, r, states):
+    """Distance-2 maximal independent set (aggregation/mis.cpp:8-220) of a
+    sorted CSR pattern with its diagonal and its sorted CSC, ranked by the
+    float64 weights ``r``; in place on ``states`` (contiguous int64)."""
+    lib = load()
+    n = len(indptr) - 1
+    _check_out(states, n, "states")
+    indptr, indices = _c(indptr), _c(indices)
+    cindptr, cindices = _c(cindptr), _c(cindices)
+    r = _f(r)
+    if len(r) < n or len(cindptr) != n + 1:
+        raise ValueError("mis2: weights or CSC shorter than the matrix")
+    lib.mis2(n, _p(indptr, I64), _p(indices, I64),
+             _p(cindptr, I64), _p(cindices, I64), _p(r, F64),
+             _p(states, I64))
+
+
+def aggregate(s_indptr, s_indices, a_indptr, a_indices, a_data, states, r,
+              aggregates) -> int:
+    """Aggregation around the MIS(2) roots (aggregation/aggregate.cpp:
+    6-95) over sorted S and A; writes ``aggregates`` (contiguous int64) in
+    place and returns the number of aggregates."""
+    lib = load()
+    n = len(s_indptr) - 1
+    _check_out(aggregates, n, "aggregates")
+    s_indptr, s_indices = _c(s_indptr), _c(s_indices)
+    a_indptr, a_indices = _c(a_indptr), _c(a_indices)
+    a_data, states, r = _f(a_data), _c(states), _f(r)
+    if len(states) != n or len(r) < n or len(a_indptr) != n + 1:
+        raise ValueError("aggregate: states, weights or A do not match S")
+    return int(lib.aggregate(
+        n, _p(s_indptr, I64), _p(s_indices, I64),
+        _p(a_indptr, I64), _p(a_indices, I64), _p(a_data, F64),
+        _p(states, I64), _p(r, F64), _p(aggregates, I64)))
 
 
 def split_pattern(indptr, indices, n_rows, n_cols):

@@ -131,3 +131,36 @@ def assert_same_history(tr, jref):
     assert tr.n_iters == n_iters > 3
     assert not tr.stalled and not stalled
     np.testing.assert_allclose(tr.res, res, rtol=1e-9, atol=1e-16)
+
+
+# smoothed-aggregation problems: (grid, shards, theta, smoother, sweeps).
+# "aniso25" is tests/test_smoothed_aggregation.py::test_sa_solver_converges's
+# configuration; the Laplacians are bench.py:bench_sa's, cut in size
+SA_PROBLEMS = {"aniso25": ((25, 25), 4, 0.25, "SOR", 1),
+               "lap16": ((16, 16, 16), 1, 0.0, "Chebyshev", 2),
+               "lap24": ((24, 24, 24), 1, 0.0, "Chebyshev", 2),
+               "lap64": ((64, 64, 64), 1, 0.0, "Chebyshev", 2)}
+
+
+def sa_matrix(problem, package):
+    """The fine matrix of an SA problem, built by ``package``'s gallery
+    (the JAX package's ``stencils`` module or the port's)."""
+    grid, n_shards = SA_PROBLEMS[problem][:2]
+    st = (package.diffusion_stencil_2d(*ANISO) if len(grid) == 2
+          else package.laplace_stencil_27pt())
+    return package.par_stencil_grid(st, grid, n_shards)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_sa(problem):
+    """The JAX package's smoothed-aggregation hierarchy of an SA problem
+    (symmetric strength, MIS(2), Jacobi prolongation), host engines."""
+    from raptor_tpu.aggregation.solver import ParSmoothedAggregationSolver
+    from raptor_tpu.gallery import stencils
+    _, _, theta, relax, sweeps = SA_PROBLEMS[problem]
+    ml = ParSmoothedAggregationSolver(theta,
+                                      relax_type=getattr(RelaxType, relax))
+    ml.rap_mode = "host"
+    ml.num_smooth_sweeps = sweeps
+    ml.setup(sa_matrix(problem, stencils))
+    return ml

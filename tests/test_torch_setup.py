@@ -94,14 +94,54 @@ def test_strength_and_splitting_match_jax(n, S):
         np.testing.assert_array_equal(tst_, jst_)
 
 
+@pytest.mark.parametrize("coarsen", [c.name for c in CoarsenType])
+def test_symmetric_strength_rs_matches_jax(coarsen):
+    """Ruge-Stuben setups on symmetric strength (the port raised on it
+    before smoothed aggregation came): every coarsening with extended+i
+    interpolation, each level's A and P and the coarse LU equal to the JAX
+    package's."""
+    from raptor_tpu.core.types import CoarsenType as JCoarsen
+    from raptor_tpu.core.types import InterpType as JInterp
+    from raptor_tpu.core.types import StrengthType as JStrength
+    from raptor_tpu.multilevel.par_multilevel import (
+        ParRugeStubenSolver as JaxRugeStuben)
+    from raptor_tpu_torch.core.types import StrengthType
+    n, S = 40, 4
+    jml = JaxRugeStuben(0.25, JCoarsen[coarsen], JInterp.Extended,
+                        JStrength.Symmetric)
+    jml.rap_mode = jml.interp_mode = "host"
+    jml.setup(jst.par_stencil_grid(jst.diffusion_stencil_2d(*ANISO), (n, n),
+                                   S))
+    tml = ParRugeStubenSolver(0.25, CoarsenType[coarsen], InterpType.Extended,
+                              StrengthType.Symmetric)
+    tml.setup(tst.par_stencil_grid(tst.diffusion_stencil_2d(*ANISO), (n, n),
+                                   S))
+    assert tml.num_levels == len(jml.levels) > 2
+    for tl, jl in zip(tml.levels, jml.levels):
+        assert_same_matrix(tl.A, jl.A)
+        assert (tl.P is None) == (jl.P is None)
+        if tl.P is not None:
+            assert_same_matrix(tl.P, jl.P)
+    np.testing.assert_array_equal(tml.coarse_lu[1], jml.coarse_lu[1])
+    np.testing.assert_allclose(tml.coarse_lu[0], jml.coarse_lu[0],
+                               rtol=1e-12, atol=1e-14)
+    assert ([set(d) for d in tml.setup_level_times]
+            == [set(d) for d in jml.setup_level_times]
+            == [{"strength", "cf_splitting", "interpolation", "RAP"}]
+            * (tml.num_levels - 1))
+
+
 def test_unported_options_raise():
     """Options of the reference that the port does not run yet raise:
-    symmetric strength (it comes with smoothed aggregation)."""
-    from raptor_tpu_torch.core.types import StrengthType
-    for ct in CoarsenType:
-        with pytest.raises(NotImplementedError, match="classical strength"):
-            ParRugeStubenSolver(0.25, ct, InterpType.Extended,
-                                StrengthType.Symmetric)
+    smoothed aggregation's distributed setup (per-shard stages over a
+    transport)."""
+    from raptor_tpu_torch import ParSmoothedAggregationSolver
+    ml = ParSmoothedAggregationSolver(0.25)
+    ml.setup_mode = "distributed"
+    with pytest.raises(NotImplementedError, match="par_setup"):
+        ml.setup(tst.par_stencil_grid(tst.diffusion_stencil_2d(*ANISO),
+                                      (16, 16), 2))
+    assert ml.levels == []
 
 
 def test_port_imports_neither_jax_nor_raptor_tpu():
