@@ -3,7 +3,7 @@
 on one NVIDIA card, and check what comes out.
 
     python3 chip_smoke.py [--n 2048] [--n3 128] [--nk 512] [--sa 128 64]
-                          [--seed 0]
+                          [--bsr 1024 512] [--seed 0]
 
 Phases, each printed as it ends; any failure ends the run with a non-zero
 exit code and no result line:
@@ -533,9 +533,9 @@ def level_times(torch, dh, reps=20):
     return rows
 
 
-def device_busy(torch, fn):
-    """(kernel count, summed kernel ms) of one call, from torch.profiler's
-    device trace; (0, 0.0) when the profiler records no device activity."""
+def device_kernels(torch, fn):
+    """(name, ms) of every kernel one call runs, from torch.profiler's
+    device trace; empty when the profiler records no device activity."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -543,9 +543,15 @@ def device_busy(torch, fn):
                              ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    kern = [e for e in prof.events()
+    return [(e.name, e.time_range.elapsed_us() / 1e3) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    return len(kern), sum(e.time_range.elapsed_us() for e in kern) / 1e3
+
+
+def device_busy(torch, fn):
+    """(kernel count, summed kernel ms) of one call (``device_kernels``);
+    (0, 0.0) when the profiler records no device activity."""
+    kern = device_kernels(torch, fn)
+    return len(kern), sum(ms for _, ms in kern)
 
 
 def reference_check(torch, setup, n, b_of):
@@ -700,6 +706,347 @@ def smoothed_aggregation(torch, n, kernels, by_path, key):
              "jax_refinements": SA_REFINEMENTS.get(n),
              "solve_s_first": solve_s, "solve_s_warm": warm_s, **cyc},
             dh, ml)
+
+
+# phase 12: the JAX package's blocked-AMG level sizes, its blocked V-cycles
+# to 1e-6 and its BSR-PCG iterations to 1e-10 (float64, b = A 1, block
+# Chebyshev(3)), the most the port may take, from a CPU run of the JAX
+# package at NX x NY elements:
+#   JAX_PLATFORMS=cpu python examples/benchmark_bsr_amg.py NX NY 1
+BSR_LEVELS = {(1024, 512): [1050624, 262146, 65790, 16768, 4282, 1120, 296,
+                            100],
+              (128, 64): [16640, 4156, 1054, 306, 100]}
+BSR_CYCLES = {(1024, 512): 31, (128, 64): 34}
+BSR_PCG = {(1024, 512): 31, (128, 64): 27}
+BSR_SMALL = (128, 64)          # bench.py:bench_bsr's size
+# the levels whose nodal P_c and P_c^T the card's rules pack as windowed
+# ELL (the levels below are BDIA), and the scalar A0's format
+BSR_WELL_LEVELS = {(1024, 512): 2, (128, 64): 0}
+
+
+def bsr_setup(nx, ny):
+    """bench.py:bench_bsr's setup: nx x ny plane-stress elasticity on one
+    shard, blocked RS + modified classical, classical strength, theta
+    0.25."""
+    from raptor_tpu_torch import ParBSRRugeStubenSolver, par_fem
+    A, _ = par_fem("elasticity", nx, ny, 1)
+    ml = ParBSRRugeStubenSolver(2, strong_threshold=0.25)
+    ml.setup(A)
+    return A, ml
+
+
+def bsr_operators(dh, ml):
+    """(label, level, packed operator, host matrix thunk) of every nodal
+    P_c and P_c^T of a blocked hierarchy ("Pn0[1]": level 0, component
+    1)."""
+    from raptor_tpu_torch.multilevel.bsr_hierarchy import nodal_transfers
+    ops = []
+    for i, lvl in enumerate(dh.levels[:-1]):
+        for c, (P, Pt) in enumerate(zip(lvl.Pn, lvl.PnT)):
+            ops.append((f"Pn{i}[{c}]", i, P,
+                        lambda i=i, c=c: nodal_transfers(ml, i)[c]))
+            ops.append((f"PnT{i}[{c}]", i, Pt,
+                        lambda i=i, c=c: nodal_transfers(ml, i)[c]
+                        .transpose()))
+    return ops
+
+
+def bsr_level_times(torch, dh, reps=20):
+    """Device time of each level's share of one blocked V-cycle: the two
+    smoothings, the residual, restriction and prolongation (the coarse
+    solve on the coarsest level), by CUDA events."""
+    from raptor_tpu_torch.device.bsr import bsr_spmv
+    rows = []
+    for i, lvl in enumerate(dh.levels):
+        S, rb = lvl.Ab.n_shards, lvl.Ab.brows_pad
+        b = torch.ones((S, rb * dh.b), dtype=dh.dtype, device="cuda")
+        if lvl.Pn is None:
+            rows.append(time_ms(torch, lambda b=b: dh._coarse_solve(b),
+                                reps))
+            continue
+        rbc = dh.levels[i + 1].Ab.brows_pad
+        ec = torch.ones((S, rbc * dh.b), dtype=dh.dtype, device="cuda")
+
+        def share(lvl=lvl, b=b, ec=ec, rb=rb, rbc=rbc):
+            x = dh._block_jacobi(lvl, torch.zeros_like(b), b)
+            dh._restrict(lvl.PnT, b - bsr_spmv(lvl.Ab, x), rbc)
+            x = x + dh._prolong(lvl.Pn, ec, rb)
+            return dh._block_jacobi(lvl, x, b)
+        rows.append(time_ms(torch, share, reps))
+    return rows
+
+
+def bsr_cycle_report(torch, dh, b, kernels):
+    """One float64 blocked V-cycle: launches per kernel, device ms by CUDA
+    events, host enqueue ms, per-level ms, and the profiler's busy time,
+    whole and split by kernel name (the largest ten)."""
+    n = len(b)
+    xd = dh.vector(np.zeros(n))
+    bd = dh.vector(b / np.linalg.norm(b))
+    kernels.reset_launches()
+    dh.vcycle(xd, bd)
+    torch.cuda.synchronize()
+    per_cycle = dict(kernels.LAUNCHES)
+    t1 = time.perf_counter()
+    dh.vcycle(xd, bd)
+    enqueue_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    cycle_ms = time_ms(torch, lambda: dh.vcycle(xd, bd), reps=10)
+    lv = bsr_level_times(torch, dh)
+    kern = device_kernels(torch, lambda: dh.vcycle(xd, bd))
+    busy_ms = sum(ms for _, ms in kern)
+    by_name = {}
+    for name, ms in kern:
+        cnt, tot = by_name.get(name, (0, 0.0))
+        by_name[name] = (cnt + 1, tot + ms)
+    split = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    busy = (f"{len(kern)} kernels, {busy_ms:.3f} ms busy = "
+            f"{busy_ms / cycle_ms:.1%} of the cycle" if kern
+            else "device busy share not measured (no profiler trace)")
+    print(f"blocked V-cycle (float64): {cycle_ms:.3f} ms on the card, host "
+          f"enqueue {enqueue_ms:.3f} ms; {busy}; ported-kernel launches per "
+          f"cycle {per_cycle}")
+    for i, t in enumerate(lv):
+        print(f"  level {i:2d}: {dh.levels[i].Ab.global_num_rows:8d} rows "
+              f"{t:8.4f} ms")
+    print(f"  sum of levels {sum(lv):.3f} ms")
+    print("  busy time by kernel name (launches, ms, share of busy):")
+    for name, (cnt, ms) in split:
+        print(f"    {cnt:5d} {ms:8.3f} {ms / max(busy_ms, 1e-12):6.1%}  "
+              f"{name[:110]}")
+    return {"vcycle_ms": cycle_ms, "vcycle_enqueue_ms": enqueue_ms,
+            "vcycle_kernels": len(kern), "vcycle_busy_ms": busy_ms,
+            "level_ms": lv, "launches_per_vcycle": per_cycle,
+            "busy_by_name": [{"name": name, "launches": cnt, "ms": ms}
+                             for name, (cnt, ms) in split]}
+
+
+def bsr_formats(dh, ml, nx, ny):
+    """Fail when a nodal transfer of a size the JAX package's counts hold
+    is not in the format the card's rules give it; returns the kernels of
+    the cycle (one per format of its nodal transfers)."""
+    ops = bsr_operators(dh, ml)
+    if (nx, ny) in BSR_WELL_LEVELS:
+        for label, level, M, _ in ops:
+            want = "well" if level < BSR_WELL_LEVELS[(nx, ny)] else "bdia"
+            if M.on_format != want:
+                raise AssertionError(f"BSR {nx} x {ny} {label} packed as "
+                                     f"{M.on_format}, not {want}")
+    return sorted({FORMAT_KERNEL[M.on_format] for _, _, M, _ in ops
+                   if M.on_format in FORMAT_KERNEL})
+
+
+def blocked_amg(torch, nx, ny, kernels, by_path, key):
+    """Phase 12 at nx x ny elements (see the module docstring): setup,
+    packing, the blocked solve and BSR-PCG, with their launches under
+    ``by_path[key + "_solve"]`` and ``by_path[key + "_pcg"]``; returns
+    (summary, device hierarchy, host hierarchy)."""
+    from raptor_tpu_torch import BSRDeviceHierarchy
+    from raptor_tpu_torch.device import par as dpar
+    from raptor_tpu_torch.krylov.cg import cg
+    t0 = time.perf_counter()
+    A, ml = bsr_setup(nx, ny)
+    setup_s = time.perf_counter() - t0
+    print(ml.print_hierarchy())
+    print(ml.print_setup_times())
+    sizes = [lvl.A.global_num_rows for lvl in ml.levels]
+    phases = dict(ml.setup_times.times)
+    print(f"BSR setup at {nx} x {ny}: {ml.num_levels} levels {sizes} in "
+          f"{setup_s:.3f} s; phases "
+          + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(phases.items())))
+    if (nx, ny) in BSR_LEVELS and sizes != BSR_LEVELS[(nx, ny)]:
+        raise AssertionError(f"BSR levels at {nx} x {ny} {sizes}, the JAX "
+                             f"package's {BSR_LEVELS[(nx, ny)]}")
+    t0 = time.perf_counter()
+    dh = BSRDeviceHierarchy(ml, sweeps=3)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    pack = dict(dh.pack_times.times)
+    print(f"BSR device hierarchy (float64, lane_pad {dh.lane_pad}): "
+          f"{pack_s:.3f} s; blocked operators {pack['blocked']:.3f} s, "
+          f"nodal transfers {pack['transfers']:.3f} s, Chebyshev intervals "
+          f"{pack['chebyshev']:.3f} s")
+    formats = dh.format_summary()
+    print("\n".join(formats))
+    path = bsr_formats(dh, ml, nx, ny)
+
+    # the blocked V-cycle to 1e-6
+    n = A.global_num_rows
+    b = A.mult(np.ones(n))
+    xd, bd = dh.vector(np.zeros(n)), dh.vector(b)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x, hist, k = dh.solve(xd, bd, tol=1e-6, max_iter=100)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = by_path[f"{key}_solve"] = dict(kernels.LAUNCHES)
+    xh = dh.host(x)
+    relres = float(np.linalg.norm(b - A.mult(xh)) / np.linalg.norm(b))
+    print(f"blocked solve ({nx} x {ny}, b = A 1): {k} V-cycles to "
+          f"{hist[k]:.3e} (host-recomputed {relres:.3e}) in {solve_s:.3f} s,"
+          f" first call; launches {launches}", flush=True)
+    if not (np.isfinite(xh).all() and xh.shape == (n,)):
+        raise AssertionError("BSR solution is not finite or has the wrong "
+                             "shape")
+    limit = BSR_CYCLES.get((nx, ny), 100)
+    if hist[k] > 1e-6 or k > limit or relres > 2e-6:
+        raise AssertionError(f"BSR {nx} x {ny}: no 1e-6 within {limit} "
+                             f"cycles: {hist[:k + 1]} (host {relres})")
+    require_launches(f"BSR solve {nx} x {ny}", launches, path)
+    t0 = time.perf_counter()
+    dh.solve(xd, bd, tol=1e-6, max_iter=100)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    print(f"blocked solve (warm): {warm_s:.3f} s")
+
+    # float64 PCG on the scalar level-0 A with the blocked V-cycle
+    Ab = ml.levels[0].A
+    A64 = dpar.device_put_matrix(Ab, dtype=torch.float64,
+                                 lane_pad=dh.lane_pad, need_transpose=False)
+
+    def vec(v):
+        return dpar.device_put_vector(v, Ab.partition.row_bounds,
+                                      A64.rows_pad, dtype=torch.float64)
+
+    pre = dh.precond_pack()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    r = cg(A64, vec(np.zeros(n)), vec(b), tol=1e-10, max_iter=200,
+           precond=pre)
+    torch.cuda.synchronize()
+    pcg_s = time.perf_counter() - t0
+    launches = by_path[f"{key}_pcg"] = dict(kernels.LAUNCHES)
+    it = r.n_iters
+    xp = dpar.host_vector(r.x, Ab.partition.row_bounds)
+    prel = float(np.linalg.norm(b - A.mult(xp)) / np.linalg.norm(b))
+    print(f"BSR-PCG ({nx} x {ny}, A0 {A64.on_format}): {it} iterations to "
+          f"{r.res[it]:.3e} (host-recomputed {prel:.3e}) in {pcg_s:.3f} s, "
+          f"{pcg_s / max(1, it) * 1e3:.1f} ms an iteration; launches "
+          f"{launches}", flush=True)
+    plimit = BSR_PCG.get((nx, ny), 200)
+    if (not r.res[it] <= 1e-10 or it > plimit or r.indefinite
+            or not np.isfinite(xp).all()):
+        raise AssertionError(f"BSR-PCG {nx} x {ny}: no 1e-10 within "
+                             f"{plimit}: {r.res[:it + 1]}")
+    require_launches(f"BSR-PCG {nx} x {ny}", launches,
+                     sorted(set(path) | {"dia_spmv"}))
+    cyc = bsr_cycle_report(torch, dh, b, kernels)
+    return ({"nx": nx, "ny": ny, "levels": sizes, "setup_s": setup_s,
+             "setup_phases": phases,
+             "setup_level_phases": ml.setup_level_times, "pack_s": pack_s,
+             "pack_phases": pack, "formats": formats, "a0_format":
+             A64.on_format, "cycles": k, "jax_cycles": BSR_CYCLES.get(
+                 (nx, ny)), "res": float(hist[k]), "host_res": relres,
+             "solve_s_first": solve_s, "solve_s_warm": warm_s,
+             "pcg_iters": it, "jax_pcg_iters": BSR_PCG.get((nx, ny)),
+             "pcg_res": float(r.res[it]), "pcg_s": pcg_s, **cyc},
+            dh, ml)
+
+
+def block_spmv_report(torch, dh, ml, gen):
+    """One float64 block SpMV on the blocked A0, timed back to back
+    (``kernel_ms``) beside its bound (the packed blocks and block column
+    ids read once, x read and y written once) and a torch.sparse CSR
+    product of the scalar A0; checked against the host product."""
+    from raptor_tpu_torch.device import par as dpar
+    from raptor_tpu_torch.device.bsr import bsr_spmv
+    B = dh.levels[0].Ab
+    A = ml.levels[0].A
+    S, n_in = B.n_shards, B.bcols_pad * B.b_cols
+    x = torch.randn((S, n_in), generator=gen, device="cuda",
+                    dtype=torch.float64)
+    y = dpar.host_vector(bsr_spmv(B, x), A.partition.row_bounds)
+    ref = A.mult(dpar.host_vector(x, A.partition.col_bounds))
+    err = float(np.abs(y - ref).max() / np.abs(ref).max())
+    if not err <= TOL["float64"]:
+        raise AssertionError(f"block SpMV on A0: rel err {err}")
+    ms = kernel_ms(torch, lambda: bsr_spmv(B, x))
+    blocks = B.on_blocks.numel() + B.off_blocks.numel()
+    nbytes = (blocks * B.on_blocks.element_size()
+              + 8 * (B.on_cols.numel() + B.off_cols.numel()
+                     + B.off_rows.numel())
+              + 8 * (x.numel() + S * B.brows_pad * B.b_rows))
+    bound_ms, bound_by = bound(nbytes, 2 * blocks, "float64")
+    lib = torch_sparse(torch, A, torch.float64, gen)
+    print(f"block SpMV on A0 ({A.global_num_rows} rows, {B.b_rows} x "
+          f"{B.b_cols} blocks, width {B.on_cols.shape[1]}): {ms:.4f} ms, "
+          f"bound {bound_ms:.4f} ms ({nbytes} B, {bound_by}), torch.sparse "
+          f"CSR of the scalar A0 {lib:.4f} ms, rel err {err:.2e}",
+          flush=True)
+    return {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes": int(nbytes), "library_ms": lib, "rel_err": err}
+
+
+def bsr_kernel_cases(torch, dh, ml):
+    """The kernels of the blocked path on its own operators, packed in
+    float32 as the card packs them (``run_checks`` repacks each in
+    float64): windowed ELL on Pn0 (component 0) and PnT0 where they took
+    it, BDIA on the largest BDIA nodal operator, DIA on the scalar A0."""
+    from raptor_tpu_torch.device.par import device_put_matrix, packed_bytes
+
+    def f32(host):
+        return device_put_matrix(host, dtype=torch.float32,
+                                 lane_pad=dh.lane_pad, need_transpose=False)
+
+    ops = {label: (M, host) for label, _, M, host in bsr_operators(dh, ml)}
+    cases = []
+    for label in ("Pn0[0]", "PnT0[0]"):
+        M, host = ops[label]
+        if M.on_format == "well":
+            h = host()
+            cases.append(("wind_ell_spmv", f"BSR {label}", f32(h), h, None))
+    bdia = [(label, M, host) for label, (M, host) in ops.items()
+            if M.on_format == "bdia"]
+    if bdia:
+        label, _, host = max(bdia, key=lambda o: packed_bytes(o[1]))
+        h = host()
+        cases.append(("bdia_spmv", f"BSR {label}", f32(h), h, None))
+    A0 = ml.levels[0].A
+    cases.append(("dia_spmv", "BSR A0", f32(A0), A0, None))
+    return cases
+
+
+def bsr_reference_check(torch, nx, ny):
+    """A small blocked solve on the card and with the plain versions on the
+    CPU (float64, lane_pad 128 on both): equal cycle counts, histories to
+    1e-9."""
+    from raptor_tpu_torch import BSRDeviceHierarchy
+    A, ml = bsr_setup(nx, ny)
+    b = A.mult(np.ones(A.global_num_rows))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dh = BSRDeviceHierarchy(ml, sweeps=3, lane_pad=128, device=dev)
+        _, hist, k = dh.solve(dh.vector(np.zeros_like(b)), dh.vector(b),
+                              tol=1e-6, max_iter=100)
+        out[dev] = (hist, k)
+    (g, kg), (c, kc) = out["cuda"], out["cpu"]
+    if kg != kc or not np.allclose(g, c, rtol=1e-9, atol=1e-16):
+        raise AssertionError(f"BSR card and CPU disagree at {nx} x {ny}: "
+                             f"{g[:kg + 1]} vs {c[:kc + 1]}")
+    return kc, float(c[kc])
+
+
+def blocked_amg_phase(torch, size, kernels, by_path, gen, checks):
+    """Phase 12: the blocked solve and PCG at ``size`` and at BSR_SMALL,
+    the block SpMV on the first one's A0, the 24 x 12 card-against-CPU
+    check, and the kernels on the first one's operators; returns the
+    summaries by key."""
+    summary = {}
+    for (nx, ny), key in ((size, "2d_bsr"), (BSR_SMALL, "2d_bsr128")):
+        summary[key], dh, ml = blocked_amg(torch, nx, ny, kernels, by_path,
+                                           key)
+        if key == "2d_bsr":
+            summary[key]["block_spmv"] = block_spmv_report(torch, dh, ml,
+                                                           gen)
+            cases = bsr_kernel_cases(torch, dh, ml)
+        del dh, ml
+    k, res = bsr_reference_check(torch, 24, 12)
+    print(f"reference: 24 x 12 float64 blocked solve, card == CPU plain "
+          f"versions ({k} cycles to {res:.3e})")
+    run_checks(torch, cases, 128, gen, checks)
+    del cases
+    torch.cuda.empty_cache()
+    return summary
 
 
 def sor_krylov(torch, nk, kernels, by_path):
@@ -1007,6 +1354,10 @@ def main(argv=None):
                     help="grid sides of the smoothed-aggregation phase: "
                     "windowed ELL and BDIA are checked on the first one's "
                     "operators, the sorted scatter on the second's")
+    ap.add_argument("--bsr", type=int, nargs=2, default=[1024, 512],
+                    metavar=("NX", "NY"),
+                    help="elements of the blocked-AMG phase's full size "
+                    "(it also runs bench.py's 128 x 64)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
@@ -1227,6 +1578,13 @@ def main(argv=None):
     del cases
     phase("smoothed aggregation", t0)
 
+    # 12. blocked AMG: the solve and PCG at both sizes, then the block SpMV
+    # and the kernels on the full size's own operators
+    t0 = time.perf_counter()
+    summary_bsr = blocked_amg_phase(torch, tuple(args.bsr), kernels, by_path,
+                                    gen, checks)
+    phase("blocked AMG", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -1252,7 +1610,10 @@ def main(argv=None):
                 "2d_sor": summaryk["launches_per_sor_vcycle"][name],
                 "3d_sa": summary_sa["3d_sa"]["launches_per_vcycle"][name],
                 "3d_sa64": summary_sa["3d_sa64"]["launches_per_vcycle"][
-                    name]},
+                    name],
+                "2d_bsr": summary_bsr["2d_bsr"]["launches_per_vcycle"][name],
+                "2d_bsr128": summary_bsr["2d_bsr128"][
+                    "launches_per_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -1275,6 +1636,7 @@ def main(argv=None):
                 "transfer": transfer}
     print(json.dumps({"2d": summary2, "3d": summary3,
                       "2d_sor_krylov": summaryk, "sa": summary_sa,
+                      "bsr": summary_bsr,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

@@ -13,13 +13,21 @@ bit-identical hierarchies.
   direct, modified-classical and extended+i interpolation) and
   ``aggregation.solver.ParSmoothedAggregationSolver`` (symmetric
   strength, MIS(2) aggregation, tentative and Jacobi-smoothed
-  prolongation), both with native Galerkin products, a dense coarse LU
-  and setup phase timers (``setup_times``, ``print_setup_times``).
+  prolongation) and ``multilevel.bsr_hierarchy.ParBSRRugeStubenSolver``
+  (blocked AMG: nodal coarsening on the block-norm graph, per-component
+  interpolation), all with native Galerkin products, a dense coarse LU
+  and setup phase timers (``setup_times``, ``print_setup_times``). The
+  gallery has the stencil problems and the Q1 finite-element Laplacian
+  and plane-stress elasticity (``gallery.fem.par_fem``).
 - **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
   packs every level into stacked-shard ``[S, ...]`` tensors
   (``device.par.device_put_matrix``) and runs V-cycles with any smoother
   of ``device.relax``; ``krylov`` holds CG, BiCGStab and GMRES, with
-  ``DeviceHierarchy.precond_pack()`` as their AMG preconditioner. SpMVs
+  ``DeviceHierarchy.precond_pack()`` as their AMG preconditioner.
+  ``multilevel.bsr_hierarchy.BSRDeviceHierarchy`` runs the blocked solve
+  on block-ELL operators (``device.bsr``) with block-Chebyshev smoothing
+  and per-component nodal transfers; its ``precond_pack()`` serves the
+  same Krylov solvers. SpMVs
   in DIA, BDIA, windowed-ELL, sorted-scatter and BELL format launch the
   hand-written CUDA kernels in ``csrc/`` (``device.kernels``); on CPU
   tensors the same wrappers run the plain PyTorch versions in
@@ -32,9 +40,13 @@ when CUDA is asked for and absent.
 from raptor_tpu_torch.aggregation.solver import ParSmoothedAggregationSolver
 from raptor_tpu_torch.core.types import (
     AggType, CoarsenType, InterpType, ProlongType, RelaxType, StrengthType)
+from raptor_tpu_torch.gallery.fem import par_fem
+from raptor_tpu_torch.multilevel.bsr_hierarchy import (
+    BSRDeviceHierarchy, ParBSRRugeStubenSolver)
 from raptor_tpu_torch.multilevel.par_multilevel import ParRugeStubenSolver
 
-__all__ = ["AggType", "CoarsenType", "InterpType", "ParRugeStubenSolver",
+__all__ = ["AggType", "BSRDeviceHierarchy", "CoarsenType", "InterpType",
+           "ParBSRRugeStubenSolver", "ParRugeStubenSolver",
            "ParSmoothedAggregationSolver", "ProlongType", "RelaxType",
-           "StrengthType"]
+           "StrengthType", "par_fem"]
 __version__ = "0.1.0"

@@ -1,9 +1,9 @@
-"""Host-side (setup-phase) CSR container (copy of raptor_tpu.core.matrix,
-CSR only).
+"""Host-side (setup-phase) CSR and BSR containers (copy of
+raptor_tpu.core.matrix, CSR and BSR only).
 
-Equivalent of the reference's serial ``CSRMatrix`` (core/matrix.hpp:619) as a
-NumPy struct of arrays. The solve phase uses the padded device formats in
-``raptor_tpu_torch.device``.
+Equivalent of the reference's serial ``CSRMatrix`` (core/matrix.hpp:619) and
+``BSRMatrix`` (core/matrix.hpp:962-1078) as NumPy structs of arrays. The
+solve phase uses the padded device formats in ``raptor_tpu_torch.device``.
 """
 
 from __future__ import annotations
@@ -155,3 +155,55 @@ class CSRMatrix:
 
     def to_dense(self) -> np.ndarray:
         return np.asarray(self.to_scipy().todense())
+
+
+@dataclasses.dataclass
+class BSRMatrix:
+    """Block sparse row with dense b_rows x b_cols blocks
+    (core/matrix.hpp:962-1078). Block values are a dense
+    [n_blocks, b_rows, b_cols] array."""
+
+    n_rows: int     # scalar rows
+    n_cols: int     # scalar cols
+    b_rows: int
+    b_cols: int
+    indptr: np.ndarray   # over block rows
+    indices: np.ndarray  # block col ids
+    blocks: np.ndarray   # [n_blocks, b_rows, b_cols]
+
+    @property
+    def n_block_rows(self) -> int:
+        return self.n_rows // self.b_rows
+
+    @property
+    def n_block_cols(self) -> int:
+        return self.n_cols // self.b_cols
+
+    @property
+    def nnz(self) -> int:
+        """Scalar nnz (counting all entries of stored blocks)."""
+        return self.blocks.size
+
+    @staticmethod
+    def from_csr(a: CSRMatrix, b_rows: int, b_cols: int) -> "BSRMatrix":
+        """CSR -> BSR conversion (core/matrix.cpp:1099-1316 ``to_BSR``)."""
+        m = a.to_scipy().tobsr(blocksize=(b_rows, b_cols))
+        return BSRMatrix(a.n_rows, a.n_cols, b_rows, b_cols,
+                         m.indptr.astype(np.int64),
+                         m.indices.astype(np.int64),
+                         np.asarray(m.data, dtype=np.float64))
+
+    def to_csr(self) -> CSRMatrix:
+        m = self.to_scipy().tocsr()
+        m.sort_indices()
+        return CSRMatrix.from_scipy(m)
+
+    def to_scipy(self) -> sp.bsr_matrix:
+        return sp.bsr_matrix((self.blocks, self.indices, self.indptr),
+                             shape=(self.n_rows, self.n_cols))
+
+    def mult(self, x: np.ndarray) -> np.ndarray:
+        return self.to_scipy() @ x
+
+    def mult_T(self, x: np.ndarray) -> np.ndarray:
+        return self.to_scipy().T @ x
