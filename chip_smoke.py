@@ -65,7 +65,22 @@ exit code and no result line:
    order that varies). Then one V-cycle's device, enqueue and busy time,
    per-level times and launches, and the kernels of SA's own operators
    against their plain versions: windowed ELL on the 128^3 P0 and P^T0,
-   BDIA on the 128^3 A1 and P1, the sorted scatter on the 64^3 P^T0.
+   BDIA on the 128^3 A1 and P1, the sorted scatter on the 64^3 P^T0;
+12. blocked AMG, at ``--bsr`` and at 128 x 64 elements (bench.py:bench_bsr:
+   Q1 elasticity, the blocked V-cycle to 1e-6 and BSR-PCG to 1e-10);
+13. setup on the card: phase 6's configuration at n3^3, phase 3's at
+   (n/2)^2 and phase 11's at its second side, set up with the default
+   engines ("auto" on the card: the device Galerkin product and
+   interpolation on every level of at least 2,000,000 nonzeros; phases 3,
+   6, 10 and 11 pin the host engines, as the JAX package's counts they are
+   held to were taken with them). For each: the engine of every level,
+   which must be the device's at or above the gate, the phase split and
+   seconds beside the host-engine setup's, a per-level replay (the host
+   engine on the same A, S and CF states, or A and P, equal in pattern and
+   within 1e-12 of max |host|, with both engines' seconds) and the float32
+   solve with b = A 1 (RS in at most 20 refinements, SA in at most the JAX
+   package's count + 2). Level 0 of the 3-D setup is multiplied once more,
+   under the profiler: bytes-equal to the first product.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -73,6 +88,7 @@ Needs one card; exits non-zero without CUDA or without the package.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import statistics
@@ -184,7 +200,10 @@ def build(native, kernels):
         raise err[0]
 
 
-def aniso_setup(n):
+def aniso_setup(n, engines="host"):
+    """Phase 3's setup; ``engines`` is its ``rap_mode`` and
+    ``interp_mode`` (the other phases keep the host engines, as the JAX
+    package's counts they are held to were taken with them)."""
     from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
     from raptor_tpu_torch.gallery.stencils import (
         diffusion_stencil_2d, par_stencil_grid)
@@ -195,6 +214,7 @@ def aniso_setup(n):
                              relax_type=RelaxType.Chebyshev)
     ml.num_smooth_sweeps = 3
     ml.max_levels = 25
+    ml.rap_mode = ml.interp_mode = engines
     ml.setup(A)
     return A, ml
 
@@ -575,7 +595,8 @@ def reference_check(torch, setup, n, b_of):
     return k, float(c.res[k])
 
 
-def lap27_setup(n):
+def lap27_setup(n, engines="host"):
+    """Phase 6's setup (``engines`` as in ``aniso_setup``)."""
     from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
     from raptor_tpu_torch.gallery.stencils import (
         laplace_stencil_27pt, par_stencil_grid)
@@ -586,6 +607,7 @@ def lap27_setup(n):
                              relax_type=RelaxType.Chebyshev)
     ml.num_smooth_sweeps = 2
     ml.max_levels = 25
+    ml.rap_mode = ml.interp_mode = engines
     ml.setup(A)
     return A, ml
 
@@ -603,6 +625,7 @@ def example_setup(n, relax_type, sweeps=1):
     ml = ParRugeStubenSolver(0.25, CoarsenType.CLJP, InterpType.ModClassical,
                              relax_type=relax_type)
     ml.num_smooth_sweeps = sweeps
+    ml.rap_mode = ml.interp_mode = "host"
     ml.setup(A)
     return A, ml
 
@@ -649,9 +672,9 @@ SA_FORMATS = {128: {"P0": "well", "Pt0": "well", "A1": "bdia", "P1": "bdia"},
               64: {"Pt0": "wellt"}}
 
 
-def sa_setup(n):
+def sa_setup(n, engines="host"):
     """bench.py:bench_sa's smoothed-aggregation setup on the n^3 27-point
-    Laplacian, one shard."""
+    Laplacian, one shard (``engines`` as in ``aniso_setup``)."""
     from raptor_tpu_torch.aggregation.solver import (
         ParSmoothedAggregationSolver)
     from raptor_tpu_torch.core.types import RelaxType
@@ -660,6 +683,7 @@ def sa_setup(n):
     A = par_stencil_grid(laplace_stencil_27pt(), (n, n, n), 1)
     ml = ParSmoothedAggregationSolver(0.0, relax_type=RelaxType.Chebyshev)
     ml.num_smooth_sweeps = 2
+    ml.rap_mode = ml.interp_mode = engines
     ml.setup(A)
     return A, ml
 
@@ -1343,6 +1367,198 @@ def time_transfer(torch, packed, gen):
     return rows
 
 
+# phase 13: the setups that run the device engines ("auto" on the card).
+# RS solves (b = A 1, float32, to 1e-8) must take at most CARD_RS_CAP
+# refinements; SA at most the JAX package's count + CARD_SA_SLACK, the
+# spread between the engines that tests/test_device_interp.py allows; a
+# replayed level's values must be within REPLAY_TOL of max |host| (float64)
+CARD_RS_CAP = 20
+CARD_SA_SLACK = 2
+REPLAY_TOL = 1e-12
+
+
+@contextlib.contextmanager
+def interp_inputs(record):
+    """Record (A, S, CF states, kind, P, seconds) of every
+    ``par_interpolation`` call of a setup: P before ``filter_interp``, so
+    that each level's interpolation can be replayed on exactly its inputs
+    and held to exactly its output."""
+    from raptor_tpu_torch.multilevel import par_multilevel as pm
+    real = pm.par_interpolation
+
+    def spy(a, s, states, kind, *args):
+        t0 = time.perf_counter()
+        p = real(a, s, states, kind, *args)
+        record.append((a, s, np.asarray(states), kind, p,
+                       time.perf_counter() - t0))
+        return p
+
+    pm.par_interpolation = spy
+    try:
+        yield
+    finally:
+        pm.par_interpolation = real
+
+
+def replay_error(what, dev, host):
+    """max |dev - host| / max |host| of two CSRs with the same pattern;
+    fails when the patterns differ or the error passes REPLAY_TOL."""
+    if dev.shape != host.shape or not (
+            np.array_equal(dev.indptr, host.indptr)
+            and np.array_equal(dev.indices, host.indices)):
+        raise AssertionError(f"{what}: the device engine's pattern is not "
+                             f"the host engine's")
+    if host.nnz == 0:
+        return 0.0
+    err = float(np.abs(dev.data - host.data).max()
+                / np.abs(host.data).max())
+    if err > REPLAY_TOL:
+        raise AssertionError(f"{what}: device values {err:.3e} of max "
+                             f"|host| from the host engine's")
+    return err
+
+
+def replay_levels(ml, record, what):
+    """Every level that ran a device engine, computed again by the host
+    engine on the same inputs: interpolation on (A, S, CF states), held to
+    the device engine's P before the filter, and the Galerkin product on
+    (A, P), held to the setup's coarse operator. Returns one row per level
+    with both engines' seconds (the device engine's from the setup)."""
+    from raptor_tpu_torch.ruge_stuben import interpolation as itp
+    rap_s = {lvl: sec for lvl, _, sec in ml.rap_stats}
+    rows = []
+    for i, eng in enumerate(ml.level_engines[:ml.num_levels - 1]):
+        row = {"level": i, "rows": ml.levels[i].A.global_num_rows,
+               "nnz": ml.levels[i].A.nnz, **eng}
+        if eng.get("interp") == "device":
+            a, s, states, kind, pd, row["interp_device_s"] = record[i]
+            t0 = time.perf_counter()
+            ph = itp._KINDS[kind](a.global_csr, s.global_csr, states)
+            row["interp_host_s"] = time.perf_counter() - t0
+            row["interp_err"] = replay_error(
+                f"{what} level {i} interpolation", pd.global_csr, ph)
+        if eng.get("rap") == "device":
+            a, p = ml.levels[i].A.global_csr, ml.levels[i].P.global_csr
+            t0 = time.perf_counter()
+            ac = p.T_multiply(a.multiply(p))
+            row["rap_host_s"] = time.perf_counter() - t0
+            row["rap_device_s"] = rap_s[i]
+            row["rap_err"] = replay_error(f"{what} level {i} RAP",
+                                          ml.levels[i + 1].A.global_csr, ac)
+        print(f"  replay level {i}: " + ", ".join(
+            f"{k} {v:.4g}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in row.items() if k != "level"), flush=True)
+        rows.append(row)
+    return rows
+
+
+def card_setup(torch, what, setup, size, host, kernels, by_path, key,
+               limit):
+    """Phase 13 for one configuration: ``setup(size, "auto")`` on the
+    card, the engine of each level (every level at or above the gate on
+    the device engine), its phase split beside the host-engine setup's
+    (``host``: that phase's summary), the per-level replay and the
+    float32 solve with b = A 1 in at most ``limit`` refinements. Returns
+    (summary, setup)."""
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.ruge_stuben.interpolation import DEVICE_MIN_NNZ
+    record = []
+    t0 = time.perf_counter()
+    with interp_inputs(record):
+        A, ml = setup(size, "auto")
+    setup_s = time.perf_counter() - t0
+    print(ml.print_hierarchy())
+    print(ml.print_setup_times())
+    phases = dict(ml.setup_times.times)
+    print(f"{what} setup on the card: {ml.num_levels} levels in "
+          f"{setup_s:.3f} s (host engines, side {host['size']}: "
+          f"{host['levels']} levels in {host['setup_s']:.3f} s)")
+    print(f"  phases, card engines {json.dumps(phases)}")
+    print(f"  phases, host engines {json.dumps(host['setup_phase_totals'])}")
+    print(f"  engines by level {ml.level_engines}", flush=True)
+    for i, eng in enumerate(ml.level_engines[:ml.num_levels - 1]):
+        if ml.levels[i].A.nnz >= DEVICE_MIN_NNZ and any(
+                v != "device" for k, v in eng.items()
+                if not k.endswith("_reason")):
+            raise AssertionError(f"{what} level {i} ({ml.levels[i].A.nnz} "
+                                 f"nonzeros) is at or above the gate and "
+                                 f"did not run the device engines: {eng}")
+    rows = replay_levels(ml, record, what)
+    del record
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy(ml, dtype=torch.float32)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    b = A.mult(np.ones(A.global_num_rows))
+    k, by_path[key], solve_s = drive_solve(torch, dh, A, b,
+                                           f"{what}, card setup, b = A 1",
+                                           kernels, limit=limit)
+    print(f"  refinements: {k} (host-engine setup: "
+          f"{host['solve_refinements_ones']}, cap {limit})", flush=True)
+    del dh
+    torch.cuda.empty_cache()
+    return ({"size": size, "levels": ml.num_levels, "setup_s": setup_s,
+             "setup_phase_totals": phases,
+             "host_setup_s": host["setup_s"],
+             "host_setup_phase_totals": host["setup_phase_totals"],
+             "level_engines": ml.level_engines, "replay": rows,
+             "pack_s": pack_s, "solve_refinements_ones": k,
+             "host_solve_refinements_ones": host["solve_refinements_ones"],
+             "solve_s_first": solve_s}, ml)
+
+
+def rap_again(torch, ml):
+    """A second device Galerkin product of level 0, traced by
+    torch.profiler: it must be bytes-equal to the setup's coarse operator.
+    Returns its wall seconds (profiler on), the summed ms of the kernels
+    it ran and their count."""
+    from torch.profiler import ProfilerActivity, profile
+    from raptor_tpu_torch.device import spgemm as dsp
+    a, p = ml.levels[0].A.global_csr, ml.levels[0].P.global_csr
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, ac, _ = dsp.rap_device(a, p, need_ap=False, device="cuda")
+        torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    kern = [e.time_range.elapsed_us() / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    first = ml.levels[1].A.global_csr
+    if not (np.array_equal(ac.indptr, first.indptr)
+            and np.array_equal(ac.indices, first.indices)
+            and ac.data.tobytes() == first.data.tobytes()):
+        raise AssertionError("two device Galerkin products of level 0 "
+                             "differ")
+    busy = (f"{len(kern)} kernels, {sum(kern):.1f} ms busy = "
+            f"{sum(kern) / 1e3 / sec:.1%} of it" if kern
+            else "device busy share not measured (no profiler trace)")
+    print(f"  level-0 device RAP again: bytes-equal, {sec:.3f} s with the "
+          f"profiler on; {busy}", flush=True)
+    return {"rap_again_s": sec, "rap_again_kernels": len(kern),
+            "rap_again_busy_ms": sum(kern)}
+
+
+def setup_on_card(torch, n, n3, n_sa, host, kernels, by_path):
+    """Phase 13 (see the module docstring) with the 2-D configuration at
+    n^2; ``host`` holds the summaries of phases 6, 3 and 11's side
+    ``n_sa``."""
+    out = {}
+    out["3d"], ml = card_setup(torch, f"3-D {n3}^3", lap27_setup, n3,
+                               host["3d"], kernels, by_path,
+                               "card_setup_3d_solve", CARD_RS_CAP)
+    out["3d"].update(rap_again(torch, ml))
+    del ml
+    out["2d"], _ = card_setup(torch, f"2-D {n}^2", aniso_setup, n,
+                              host["2d"], kernels, by_path,
+                              "card_setup_2d_solve", CARD_RS_CAP)
+    sa_cap = (SA_REFINEMENTS[n_sa] + CARD_SA_SLACK
+              if n_sa in SA_REFINEMENTS else None)
+    out["sa"], _ = card_setup(torch, f"SA {n_sa}^3", sa_setup, n_sa,
+                              host["sa"], kernels, by_path,
+                              "card_setup_sa_solve", sa_cap)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048, help="2-D grid side")
@@ -1463,6 +1679,7 @@ def main(argv=None):
     print(f"reference: 64^2 float64 solve, card == CPU plain versions "
           f"({k} cycles to {res:.3e})")
     summary2 = {"n": n, "levels": ml.num_levels, "setup_s": setup_s,
+                "setup_phase_totals": dict(ml.setup_times.times),
                 "solve_refinements": k2,
                 "solve_refinements_ones": len(hist1) - 1, **cyc2}
     del dh, ml, A, b, b1
@@ -1585,6 +1802,27 @@ def main(argv=None):
                                     gen, checks)
     phase("blocked AMG", t0)
 
+    # 13. the setups on the card: the device engines beside the host
+    # engines of phases 6, 3 and 11
+    t0 = time.perf_counter()
+    sa64 = summary_sa["3d_sa64"]
+    host_setups = {
+        "3d": {"size": n3, "levels": ml3.num_levels, "setup_s": setup3_s,
+               "setup_phase_totals": dict(ml3.setup_times.times),
+               "solve_refinements_ones": k3},
+        "2d": {**summary2, "size": n},
+        "sa": {"size": args.sa[1], "levels": len(sa64["levels"]),
+               "setup_s": sa64["setup_s"],
+               "setup_phase_totals": {
+                   k: sum(d.get(k, 0.0) for d in sa64["setup_phases"])
+                   for k in set().union(*sa64["setup_phases"])},
+               "solve_refinements_ones": sa64["solve_refinements_ones"]}}
+    del dh3, ml3, A3
+    torch.cuda.empty_cache()
+    summary_card = setup_on_card(torch, n // 2, n3, args.sa[1],
+                                 host_setups, kernels, by_path)
+    phase("setup on the card", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -1627,16 +1865,15 @@ def main(argv=None):
                                            "slots", "fill", "col_bytes")
                           if k in c}
                        for c in cs]})
-    summary3 = {"n3": n3, "levels": ml3.num_levels, "setup_s": setup3_s,
-                "pack_s": pack3_s, "formats": formats3,
-                "solve_refinements_ones": k3, "solve_s_first": solve3_s,
+    summary3 = {**host_setups["3d"], "n3": n3, "pack_s": pack3_s,
+                "formats": formats3, "solve_s_first": solve3_s,
                 "solve_s_warm": warm3_s,
                 "solve_refinements_random": len(hist3r) - 1,
                 "solve_launches_random": solve_launches3, **cyc3,
                 "transfer": transfer}
     print(json.dumps({"2d": summary2, "3d": summary3,
                       "2d_sor_krylov": summaryk, "sa": summary_sa,
-                      "bsr": summary_bsr,
+                      "bsr": summary_bsr, "setup_on_card": summary_card,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

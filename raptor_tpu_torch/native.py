@@ -8,9 +8,9 @@ build directory, and binds only the entry points the port's setup calls:
 classical and symmetric strength, the split pattern, the RS passes, the
 CLJP loop, mark-strong, modified-classical interpolation, glibc ``rand()``,
 the stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
-interpolation and its pattern bound, the smoothers' greedy colouring and
-triangular level schedule, and smoothed aggregation's MIS(2) and
-aggregation passes. Both packages then build
+interpolation and its pattern bound, the operand packing of the device
+interpolation engines, the smoothers' greedy colouring and triangular
+level schedule, and smoothed aggregation's MIS(2) and aggregation passes. Both packages then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
 """
@@ -35,6 +35,7 @@ _lib = None
 _lock = threading.Lock()
 
 I64 = ctypes.POINTER(ctypes.c_int64)
+I32 = ctypes.POINTER(ctypes.c_int32)
 F64 = ctypes.POINTER(ctypes.c_double)
 I8 = ctypes.POINTER(ctypes.c_int8)
 _i64 = ctypes.c_int64
@@ -109,10 +110,24 @@ def load():
         lib.greedy_coloring.argtypes = [_i64, I64, I64, I64]
         lib.greedy_coloring.restype = _i64
         lib.level_schedule.argtypes = [_i64, I64, I64, _i64, I64]
+        lib.interp_dev_widths.argtypes = [_i64, I64, I64, F64, I8, I64, I64]
+        lib.interp_dev_pack.argtypes = (
+            [_i64, I64, I64, F64, I8, I64]
+            + [_i64, I32, F64]                  # sc
+            + [_i64, I32, F64, F64, F64]        # sf + di + at
+            + [_i64, I32, F64] * 3              # bcs, bcw, awc
+            + [F64, F64])                       # dsc, wsum0
+        lib.interp_dev_widths_mc.argtypes = [_i64, I64, I64, I8, I64, I64]
+        lib.interp_dev_pack_mc.argtypes = (
+            [_i64, I64, I64, F64, I8, I64, I64, _i64]
+            + [_i64, I32, F64] * 3              # sc, sf, ba
+            + [F64, F64])                       # wsum0, sgn
         for fn in (lib.rs_first_pass, lib.rs_second_pass,
                    lib.cljp_main_loop, lib.pmis_main_loop, lib.mark_strong,
                    lib.glibc_rand_doubles, lib.spgemm_fetch,
-                   lib.finalize_interp, lib.level_schedule, lib.mis2):
+                   lib.finalize_interp, lib.level_schedule, lib.mis2,
+                   lib.interp_dev_widths, lib.interp_dev_pack,
+                   lib.interp_dev_widths_mc, lib.interp_dev_pack_mc):
             fn.restype = None
         _lib = lib
         return _lib
@@ -225,6 +240,88 @@ def interp_pattern_bound(a_indptr, a_indices, strong, states) -> int:
     return int(lib.interp_pattern_bound(
         len(a_indptr) - 1, _p(a_indptr, I64), _p(a_indices, I64),
         _p(strong, I8), _p(states, I64)))
+
+
+def _ell_out(w, n):
+    """An ELL operand the native packer fills: [w, n] int32 columns and
+    [w, n] float64 values."""
+    return (np.empty((w, n), dtype=np.int32),
+            np.empty((w, n), dtype=np.float64))
+
+
+def interp_dev_prep(a_indptr, a_indices, a_data, strong, states):
+    """Every host operand of the device extended+i engine in one pass over
+    the sorted CSR (``device.interp._prep``'s contract): a dict of the ELL
+    pairs ``sc``, ``sf``, ``bcs``, ``bcw``, ``awc`` ([W, n] int32 columns,
+    SENT-padded, and float64 values), ``di_v`` and ``at_v`` (aligned with
+    ``sf``), the row vectors ``dsc`` and ``wsum0``, and ``p_bound``."""
+    lib = load()
+    n = len(a_indptr) - 1
+    a_indptr, a_indices, a_data = _c(a_indptr), _c(a_indices), _f(a_data)
+    strong = np.ascontiguousarray(strong, dtype=np.int8)
+    states = _c(states)
+    widths = np.zeros(6, dtype=np.int64)
+    lib.interp_dev_widths(n, _p(a_indptr, I64), _p(a_indices, I64),
+                          _p(a_data, F64), _p(strong, I8),
+                          _p(states, I64), _p(widths, I64))
+    w_sc, w_sf, w_bcs, w_bcw, w_awc, p_bound = (int(x) for x in widths)
+    sc_c, sc_v = _ell_out(w_sc, n)
+    sf_c, sf_v = _ell_out(w_sf, n)
+    di_v = np.empty((w_sf, n))
+    at_v = np.empty((w_sf, n))
+    bcs_c, bcs_v = _ell_out(w_bcs, n)
+    bcw_c, bcw_v = _ell_out(w_bcw, n)
+    awc_c, awc_v = _ell_out(w_awc, n)
+    dsc = np.empty(n)
+    wsum0 = np.empty(n)
+    lib.interp_dev_pack(
+        n, _p(a_indptr, I64), _p(a_indices, I64), _p(a_data, F64),
+        _p(strong, I8), _p(states, I64),
+        w_sc, _p(sc_c, I32), _p(sc_v, F64),
+        w_sf, _p(sf_c, I32), _p(sf_v, F64), _p(di_v, F64), _p(at_v, F64),
+        w_bcs, _p(bcs_c, I32), _p(bcs_v, F64),
+        w_bcw, _p(bcw_c, I32), _p(bcw_v, F64),
+        w_awc, _p(awc_c, I32), _p(awc_v, F64),
+        _p(dsc, F64), _p(wsum0, F64))
+    return dict(sc=(sc_c, sc_v), sf=(sf_c, sf_v), di_v=di_v, at_v=at_v,
+                bcs=(bcs_c, bcs_v), bcw=(bcw_c, bcw_v),
+                awc=(awc_c, awc_v), dsc=dsc, wsum0=wsum0, p_bound=p_bound)
+
+
+def interp_dev_prep_mc(a_indptr, a_indices, a_data, strong, states,
+                       variables=None, num_variables: int = 1):
+    """The modified-classical counterpart of ``interp_dev_prep``: the ELL
+    pairs ``sc``, ``sf`` and ``ba`` (every C-state off-diagonal entry; the
+    sign test against each target row runs on the device), ``wsum0`` with
+    same-variable weak sums, and ``sgn``, the sign of each diagonal."""
+    lib = load()
+    n = len(a_indptr) - 1
+    a_indptr, a_indices, a_data = _c(a_indptr), _c(a_indices), _f(a_data)
+    strong = np.ascontiguousarray(strong, dtype=np.int8)
+    states = _c(states)
+    if variables is None:
+        variables, num_variables = np.zeros(n, dtype=np.int64), 1
+    variables = _c(variables)
+    widths = np.zeros(3, dtype=np.int64)
+    lib.interp_dev_widths_mc(n, _p(a_indptr, I64), _p(a_indices, I64),
+                             _p(strong, I8), _p(states, I64),
+                             _p(widths, I64))
+    w_sc, w_sf, w_ba = (int(x) for x in widths)
+    sc_c, sc_v = _ell_out(w_sc, n)
+    sf_c, sf_v = _ell_out(w_sf, n)
+    ba_c, ba_v = _ell_out(w_ba, n)
+    wsum0 = np.empty(n)
+    sgn = np.empty(n)
+    lib.interp_dev_pack_mc(
+        n, _p(a_indptr, I64), _p(a_indices, I64), _p(a_data, F64),
+        _p(strong, I8), _p(states, I64), _p(variables, I64),
+        int(num_variables),
+        w_sc, _p(sc_c, I32), _p(sc_v, F64),
+        w_sf, _p(sf_c, I32), _p(sf_v, F64),
+        w_ba, _p(ba_c, I32), _p(ba_v, F64),
+        _p(wsum0, F64), _p(sgn, F64))
+    return dict(sc=(sc_c, sc_v), sf=(sf_c, sf_v), ba=(ba_c, ba_v),
+                wsum0=wsum0, sgn=sgn)
 
 
 def finalize_interp(n, rows, cols, vals, col_map, do_sort):

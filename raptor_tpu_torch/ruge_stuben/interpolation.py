@@ -1,27 +1,36 @@
 """Direct, modified-classical and extended+i interpolation (copy of
 raptor_tpu.ruge_stuben.interpolation: the direct row algorithm, the native
-host kernels, the row-sum-preserving filter and the ``par_interpolation``
-partition rule).
+host kernels, the row-sum-preserving filter, the dispatch between the host
+and the device engines, and the ``par_interpolation`` partition rule).
 
 Direct interpolation is the reference's serial row algorithm
 (ruge_stuben/interpolation.cpp:443-597) over the global matrix. The native
 kernels have the production (parallel) semantics of the reference's
 par_interpolation.cpp (:301-1010 extended+i, :1012-1400 modified
-classical). All run globally on the host, so the result does not depend
-on the shard count. The device interpolation engines belong to a later
-slice of the port.
+classical). All run globally, so the result does not depend on the shard
+count. Extended+i and modified classical also have device engines
+(``device.interp``), which ``par_interpolation``'s ``engine`` selects:
+"host", "device", or "auto" (the device engine for a level of at least
+``DEVICE_MIN_NNZ`` nonzeros when the device is a CUDA card that is
+present). A device engine's error propagates; only its width cap
+(``InterpOverflow``) hands the level to the host kernel, and
+``LAST_ENGINE`` records which engine ran and why.
 """
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import scipy.sparse as sp
+import torch
 
 from raptor_tpu_torch import native
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import ZERO_TOL, CFState
+from raptor_tpu_torch.device import interp as dinterp
 
 S_, F = CFState.Selected, CFState.Unselected
 
@@ -171,21 +180,102 @@ def filter_interp(p: CSRMatrix, filter_threshold: float) -> CSRMatrix:
     return CSRMatrix.from_scipy(out)
 
 
+# the level size (A's nonzeros) from which "auto" runs a device engine of
+# the setup (interpolation here, the Galerkin product in
+# ``multilevel.par_multilevel``): the JAX package's default, set there for
+# a TPU
+DEVICE_MIN_NNZ = 2_000_000
+
+
+def auto_uses_device(level_nnz: int, device) -> bool:
+    """Whether "auto" runs a device engine: a level of at least
+    ``DEVICE_MIN_NNZ`` nonzeros and a CUDA card that is present (the JAX
+    package's "auto" likewise stays on the host off its chip)."""
+    return (level_nnz >= DEVICE_MIN_NNZ
+            and torch.device(device).type == "cuda"
+            and torch.cuda.is_available())
+
+
+ENGINES = ("host", "device", "auto")
+
+# the engine that the last extended+i or modified-classical dispatch ran
+# ("host" or "device"), why it ran the host kernel when a device engine was
+# asked for (its width cap; "" otherwise), and the count of device runs
+LAST_ENGINE = {"interp": "host", "reason": "", "device_calls": 0}
+
+
+def _device_interp_inputs(a: CSRMatrix, s: CSRMatrix, states):
+    """The device engines' preamble: A's strong flags and the coarse
+    map."""
+    _, _, _, strong = _strong_flags(a, s)
+    col_to_new, n_coarse = _coarse_map(states)
+    return strong, col_to_new, n_coarse
+
+
+def _use_device_interp(engine: str, level_nnz: int, device) -> bool:
+    if engine not in ENGINES:
+        raise ValueError(f"interpolation engine {engine!r}; one of "
+                         f"{ENGINES}")
+    return engine == "device" or (engine == "auto"
+                                  and auto_uses_device(level_nnz, device))
+
+
+def _record(engine: str, reason: str = "") -> None:
+    LAST_ENGINE["interp"] = engine
+    LAST_ENGINE["reason"] = reason
+    LAST_ENGINE["device_calls"] += engine == "device"
+
+
+def _device_dispatch(kind: str, a: CSRMatrix, s: CSRMatrix, states,
+                     engine: str, level_nnz: int, device) -> CSRMatrix:
+    """P of ``kind`` ("extended" or "mod_classical") by the selected
+    engine. Unlike the JAX package's dispatch, no error of a device engine
+    is caught: the host kernel runs only when the engine was not chosen or
+    when its width cap (``InterpOverflow``) was hit."""
+    reason = ""
+    if _use_device_interp(engine, level_nnz, device):
+        strong, col_to_new, n_coarse = _device_interp_inputs(a, s, states)
+        run = (dinterp.extended_interp_device if kind == "extended"
+               else dinterp.mod_classical_interp_device)
+        try:
+            p = run(a, strong, np.asarray(states), col_to_new, n_coarse,
+                    device=device)
+        except dinterp.InterpOverflow as e:
+            reason = f"cap: {e}"
+        else:
+            _record("device")
+            return p
+    _record("host", reason)
+    return _KINDS[kind](a, s, states)
+
+
+_extended_dispatch = functools.partial(_device_dispatch, "extended")
+_mod_classical_dispatch = functools.partial(_device_dispatch,
+                                            "mod_classical")
+
 _KINDS = {"direct": direct_interpolation,
           "mod_classical": mod_classical_interpolation,
           "extended": extended_interpolation}
+_DISPATCH = {"mod_classical": _mod_classical_dispatch,
+             "extended": _extended_dispatch}
 
 
 def par_interpolation(a: ParCSRMatrix, s: ParCSRMatrix, states,
-                      kind: str = "direct") -> ParCSRMatrix:
+                      kind: str = "direct", engine: str = "host",
+                      device="cuda") -> ParCSRMatrix:
     """P of the given ``kind`` ("direct", "mod_classical" or "extended")
-    with the
-    reference's partition: A's rows, and coarse columns owned where their
-    fine C-points live."""
+    with the reference's partition: A's rows, and coarse columns owned
+    where their fine C-points live. ``engine`` ("host", "device" or
+    "auto") selects the engine of modified classical and extended+i;
+    ``device`` is where a device engine runs."""
     if kind not in _KINDS:
         raise ValueError(f"interpolation kind {kind!r}; the port runs "
                          f"{sorted(_KINDS)}")
-    p = _KINDS[kind](a.global_csr, s.global_csr, states)
+    if kind in _DISPATCH:
+        p = _DISPATCH[kind](a.global_csr, s.global_csr, states, engine,
+                            a.nnz, device)
+    else:
+        p = _KINDS[kind](a.global_csr, s.global_csr, states)
     row_bounds = a.partition.row_bounds
     csum = np.concatenate([[0], np.cumsum(np.asarray(states) == S_)])
     part = Partition(a.global_num_rows, p.n_cols, a.partition.n_shards,
