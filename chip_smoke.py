@@ -80,7 +80,25 @@ exit code and no result line:
    within 1e-12 of max |host|, with both engines' seconds) and the float32
    solve with b = A 1 (RS in at most 20 refinements, SA in at most the JAX
    package's count + 2). Level 0 of the 3-D setup is multiplied once more,
-   under the profiler: bytes-equal to the first product.
+   under the profiler: bytes-equal to the first product;
+14. the topology-aware (TAP) halo exchange and the distributed setup, on
+   8 shards laid out as 2 hosts x 4 (the JAX package's multichip record),
+   HMIS + extended+i, theta 0.25, host engines. (a) examples/
+   benchmark_tap_amg.py at its 512^2: the global setup (the JAX
+   package's level sizes), SOR(1) V-cycles in float32 with b = A 1
+   refined to 1e-6 (float64 residuals) with the plain exchange, TAP on
+   every level and TAP from level 1 (the same V-cycles to within one,
+   DIA and BDIA launched), the spread of the TAP
+   solutions from the plain one, one V-cycle's device / enqueue / busy ms
+   and launches of each exchange, and per level the values the TAP plans
+   of A, P and P^T send across hosts beside the plain exchange's (never
+   more). (b) the flagship at (n/2)^2 with setup_mode = "distributed"
+   (the JAX package's level sizes), its phase split beside the global
+   setup's of the same problem, Chebyshev(3) in float32 with TAP on every
+   level refined to 1e-8 with b = A 1 in at most 20 refinements, as many
+   as with the plain exchange. (c) one float64 TAP V-cycle of a 64^2
+   distributed hierarchy on the card and on the CPU: equal to 1e-12 of
+   max |x|.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -1559,6 +1577,300 @@ def setup_on_card(torch, n, n3, n_sa, host, kernels, by_path):
     return out
 
 
+# phase 14: the topology-aware exchange (TAP) and the distributed setup, on
+# the 8 shards of TAP_LAYOUT (hosts x shards per host, the JAX package's
+# multichip record). The JAX package's level sizes (HMIS + extended+i,
+# theta 0.25, host engines), from a CPU run of the JAX package:
+#   JAX_PLATFORMS=cpu python -c "import sys, numpy as np; from \
+#   raptor_tpu.core.types import CoarsenType as C, InterpType as I; from \
+#   raptor_tpu.gallery.stencils import diffusion_stencil_2d as D, \
+#   par_stencil_grid as G; from raptor_tpu.multilevel.par_multilevel \
+#   import ParRugeStubenSolver as RS; n, mode = int(sys.argv[1]), \
+#   sys.argv[2]; ml = RS(0.25, C.HMIS, I.Extended); ml.rap_mode = \
+#   ml.interp_mode = 'host'; ml.setup_mode = mode; ml.setup(G(D(0.001, \
+#   np.pi / 8), (n, n), 8)); print([l.A.global_num_rows for l in \
+#   ml.levels])" N MODE
+TAP_LAYOUT = (2, 4)
+TAP_N = 512           # 14a: examples/benchmark_tap_amg.py's grid side
+TAP_LEVELS = [262144, 131072, 65536, 21308, 6783, 2052, 750, 204, 52,
+              18]                                           # global, 14a
+DIST_LEVELS = {1024: [1048576, 524288, 262144, 86479, 26951, 8091, 2836,
+                      662, 144, 29]}                        # distributed, 14b
+TAP_TOL = 1e-6        # examples/benchmark_tap_amg.py's solve_tol
+# 14a: the JAX package's V-cycles to TAP_TOL at TAP_N^2 (TAP on every
+# level, a float32 hierarchy refined with float64 residuals), the most
+# the port may take plus one (SOR's atomics); the command prints them
+# after the cycles, stall flag and last residual of its float32
+# ``solve``, which stalls above TAP_TOL:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+#   python -c "import numpy as np, jax; jax.config.update( \
+#   'jax_enable_x64', True); import jax.numpy as jnp; from \
+#   raptor_tpu.core.types import CoarsenType as C, InterpType as I, \
+#   RelaxType as R; from raptor_tpu.device.par import make_mesh2; from \
+#   raptor_tpu.gallery.stencils import diffusion_stencil_2d as D, \
+#   par_stencil_grid as G; from raptor_tpu.multilevel.device_hierarchy \
+#   import DeviceHierarchy as DH; from raptor_tpu.multilevel.par_multilevel \
+#   import ParRugeStubenSolver as RS; A = G(D(0.001, np.pi / 8), (512, \
+#   512), 8); ml = RS(0.25, C.HMIS, I.Extended, relax_type=R.SOR); \
+#   ml.rap_mode = ml.interp_mode = 'host'; ml.setup(A); ml.tap_amg = 0; \
+#   ml.solve_tol = 1e-6; b = A.mult(np.ones(512 ** 2)); dh = DH(ml, \
+#   make_mesh2(2, 4), dtype=jnp.float32); r = dh.solve(dh.vector(0 * b), \
+#   dh.vector(b)); k = int(r.n_iters); _, h = dh.solve_mixed(0 * b, b, \
+#   tol=1e-6); print(k, bool(r.stalled), float(r.res[k]), len(h) - 1)"
+TAP_CYCLES = 17
+CARD_CPU_TOL = 1e-12  # 14c: card against CPU, of max |x|
+
+
+def tap_setup(n, mode, relax, sweeps):
+    """Phase 14's host setup: n x n rotated anisotropic diffusion on the
+    shards of TAP_LAYOUT, HMIS + extended+i, theta 0.25, host engines, in
+    ``setup_mode`` ``mode``; returns (A, setup, seconds)."""
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.par_multilevel import (
+        ParRugeStubenSolver)
+    H, L = TAP_LAYOUT
+    A = par_stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n),
+                         H * L)
+    ml = ParRugeStubenSolver(0.25, CoarsenType.HMIS, InterpType.Extended,
+                             relax_type=getattr(RelaxType, relax))
+    ml.num_smooth_sweeps = sweeps
+    ml.rap_mode = ml.interp_mode = "host"
+    ml.setup_mode = mode
+    t0 = time.perf_counter()
+    ml.setup(A)
+    return A, ml, time.perf_counter() - t0
+
+
+def level_sizes(what, ml, want):
+    """The hierarchy's level sizes; fails when they are not ``want`` (the
+    JAX package's, where known)."""
+    got = [lvl.A.global_num_rows for lvl in ml.levels]
+    if want is not None and got != want:
+        raise AssertionError(f"{what}: levels {got}, the JAX package's "
+                             f"{want}")
+    return got
+
+
+def tap_hierarchy(ml, tap_amg, dtype, device="cuda"):
+    """The device hierarchy on TAP_LAYOUT with TAP from level ``tap_amg``
+    (-1: the plain exchange throughout), with the card's 128-lane
+    padding on either device."""
+    from raptor_tpu_torch.device.par import make_mesh2
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    ml.tap_amg = tap_amg
+    return DeviceHierarchy(ml, dtype=dtype, lane_pad=128, device=device,
+                           mesh=make_mesh2(*TAP_LAYOUT))
+
+
+def dcn_report(ml):
+    """Per level, the values that cross hosts under the TAP plans of A, P
+    and P^T beside the plain exchange's (the plans' ``dcn_values`` and
+    ``dcn_values_plain``); fails when TAP sends more."""
+    from raptor_tpu_torch.comm.tap import build_tap_plan
+    rows = []
+    for i, lvl in enumerate(ml.levels):
+        mats = [("A", lvl.A)]
+        if lvl.P is not None:
+            mats += [("P", lvl.P), ("Pt", lvl.P.transpose())]
+        row = {}
+        for name, m in mats:
+            plan = build_tap_plan(m, *TAP_LAYOUT)
+            row[name] = [plan.dcn_values, plan.dcn_values_plain]
+            if plan.dcn_values > plan.dcn_values_plain:
+                raise AssertionError(f"level {i} {name}: TAP sends "
+                                     f"{plan.dcn_values} values across "
+                                     f"hosts, the plain exchange "
+                                     f"{plan.dcn_values_plain}")
+        print(f"  level {i}: " + ", ".join(
+            f"{k} dcn {v[0]} (plain {v[1]})" for k, v in row.items()))
+        rows.append(row)
+    return rows
+
+
+def compare_cycles(torch, dhs, b, kernels, rounds=3):
+    """One V-cycle of each hierarchy of ``dhs`` (label -> hierarchy): the
+    ported kernels' launches, then device ms (CUDA events, 5 cycles) and
+    host enqueue ms taken in turns, one hierarchy after the other for
+    ``rounds`` rounds (the host's load drifts), their medians and ranges,
+    and last the profiler's kernel count and busy ms of each."""
+    xd = {k: dh.vector(np.zeros_like(b)) for k, dh in dhs.items()}
+    bd = {k: dh.vector(b / np.linalg.norm(b)) for k, dh in dhs.items()}
+
+    def cycle(k):
+        return lambda: dhs[k].vcycle(xd[k], bd[k])
+
+    out = {k: {"vcycle_ms_rounds": [], "vcycle_enqueue_ms_rounds": []}
+           for k in dhs}
+    for k in dhs:
+        kernels.reset_launches()
+        cycle(k)()
+        torch.cuda.synchronize()
+        out[k]["launches_per_vcycle"] = dict(kernels.LAUNCHES)
+    for _ in range(rounds):
+        for k in dhs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cycle(k)()
+            out[k]["vcycle_enqueue_ms_rounds"].append(
+                (time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            out[k]["vcycle_ms_rounds"].append(
+                time_ms(torch, cycle(k), reps=5, warm=1))
+    for k in dhs:
+        c = out[k]
+        c["vcycle_ms"] = statistics.median(c["vcycle_ms_rounds"])
+        c["vcycle_enqueue_ms"] = statistics.median(
+            c["vcycle_enqueue_ms_rounds"])
+        c["vcycle_kernels"], c["vcycle_busy_ms"] = device_busy(torch,
+                                                               cycle(k))
+    return out
+
+
+def print_cycles(what, cycles):
+    for label, c in cycles.items():
+        busy = (f"{c['vcycle_kernels']} kernels busy "
+                f"{c['vcycle_busy_ms']:.3f} ms" if c["vcycle_kernels"]
+                else "busy not measured (no profiler trace)")
+        print(f"  {what} V-cycle, {label}: {c['vcycle_ms']:.3f} ms on the "
+              f"card (rounds {[round(t, 3) for t in c['vcycle_ms_rounds']]}"
+              f"), enqueue {c['vcycle_enqueue_ms']:.3f} ms (rounds "
+              f"{[round(t, 3) for t in c['vcycle_enqueue_ms_rounds']]}), "
+              f"{busy}; ported-kernel launches "
+              f"{c['launches_per_vcycle']}", flush=True)
+
+
+def tap_example(torch, kernels, by_path):
+    """14a: examples/benchmark_tap_amg.py at side TAP_N (global setup,
+    SOR(1), float32 V-cycles, b = A 1, to TAP_TOL) with the plain
+    exchange, TAP on every level and TAP from level 1; the same V-cycles
+    to within one (SOR's index_add_ sums with atomics on the card), at
+    most the JAX package's (TAP_CYCLES) + 1. The residual is taken in
+    float64 (``solve_mixed``, one V-cycle a refinement): the float32
+    residual of ``solve`` levels off above TAP_TOL at TAP_N^2."""
+    n = TAP_N
+    A, ml, setup_s = tap_setup(n, "global", "SOR", 1)
+    levels = level_sizes(f"TAP {n}^2", ml, TAP_LEVELS)
+    print(f"TAP example {n}^2 on {TAP_LAYOUT[0]} x {TAP_LAYOUT[1]} shards: "
+          f"levels {levels}, setup {setup_s:.3f} s")
+    b = A.mult(np.ones(A.global_num_rows))
+    runs, xs, kept = {}, {}, {}
+    for label, tap_amg in (("plain", -1), ("tap0", 0), ("tap1", 1)):
+        t0 = time.perf_counter()
+        dh = tap_hierarchy(ml, tap_amg, torch.float32)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        xs[label], hist = dh.solve_mixed(np.zeros_like(b), b, tol=TAP_TOL,
+                                         max_iter=100)
+        torch.cuda.synchronize()
+        solve_s = time.perf_counter() - t0
+        launches = dict(kernels.LAUNCHES)
+        by_path[f"tap{n}_{label}"] = launches
+        k = len(hist) - 1
+        print(f"  {label}: {k} V-cycles to {hist[-1]:.3e} in {solve_s:.3f} "
+              f"s (pack {pack_s:.3f} s); launches {launches}", flush=True)
+        if hist[-1] > TAP_TOL or not np.isfinite(xs[label]).all():
+            raise AssertionError(f"TAP {n}^2 {label}: no {TAP_TOL} ({hist})")
+        require_launches(f"TAP {n}^2 {label}", launches, path_kernels(dh))
+        require_launches(f"TAP {n}^2 {label}", launches)
+        runs[label] = {"vcycles": k, "final_res": float(hist[-1]),
+                       "solve_s": solve_s, "pack_s": pack_s}
+        if label != "tap1":
+            kept[label] = dh
+        del dh
+    counts = [v["vcycles"] for v in runs.values()]
+    if max(counts) - min(counts) > 1 or max(counts) > TAP_CYCLES + 1:
+        raise AssertionError(f"TAP {n}^2: V-cycles {counts} differ by more "
+                             f"than one or pass the JAX package's "
+                             f"{TAP_CYCLES} + 1")
+    scale = np.abs(xs["plain"]).max()
+    for label in ("tap0", "tap1"):
+        runs[label]["x_rel_diff"] = float(
+            np.abs(xs[label] - xs["plain"]).max() / scale)
+        print(f"  max |x_{label} - x_plain| / max |x_plain| = "
+              f"{runs[label]['x_rel_diff']:.3e}")
+    cycles = compare_cycles(torch, kept, b, kernels)
+    del kept
+    print_cycles(f"TAP {n}^2", cycles)
+    print("  values across hosts per level (TAP plans vs plain exchange):")
+    dcn = dcn_report(ml)
+    return {"n": n, "levels": levels, "setup_s": setup_s, "runs": runs,
+            "cycles": cycles, "dcn": dcn}
+
+
+def dist_flagship(torch, n, kernels, by_path):
+    """14b: the flagship at side n with the distributed setup on
+    TAP_LAYOUT, Chebyshev(3), float32, TAP on every level, refined to 1e-8
+    with b = A 1 in at most 20 refinements, equal to the plain exchange's
+    on the same hierarchy; the setup's phase split beside the global
+    setup's of the same problem."""
+    A, ml, setup_s = tap_setup(n, "distributed", "Chebyshev", 3)
+    levels = level_sizes(f"distributed {n}^2", ml, DIST_LEVELS.get(n))
+    print(f"distributed setup {n}^2 on {TAP_LAYOUT[0] * TAP_LAYOUT[1]} "
+          f"shards: levels {levels} in {setup_s:.3f} s")
+    print(ml.print_setup_times())
+    _, mlg, global_s = tap_setup(n, "global", "Chebyshev", 3)
+    global_levels = [lvl.A.global_num_rows for lvl in mlg.levels]
+    global_phases = dict(mlg.setup_times.times)
+    del mlg
+    print(f"  global setup of the same problem: {len(global_levels)} levels "
+          f"in {global_s:.3f} s, phases {json.dumps(global_phases)}")
+    b = A.mult(np.ones(A.global_num_rows))
+    out = {"n": n, "levels": levels, "setup_s": setup_s,
+           "setup_phase_totals": dict(ml.setup_times.times),
+           "setup_level_times": ml.setup_level_times,
+           "global_setup_s": global_s, "global_levels": global_levels,
+           "global_setup_phase_totals": global_phases}
+    kept = {}
+    for label, tap_amg in (("tap0", 0), ("plain", -1)):
+        t0 = time.perf_counter()
+        kept[label] = tap_hierarchy(ml, tap_amg, torch.float32)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        key = f"dist{n}_{label}"
+        k, by_path[key], solve_s = drive_solve(
+            torch, kept[label], A, b, f"distributed {n}^2, {label}",
+            kernels, limit=CARD_RS_CAP)
+        if tap_amg == 0:
+            require_launches(f"distributed {n}^2 TAP", by_path[key])
+        out[label] = {"refinements": k, "solve_s_first": solve_s,
+                      "pack_s": pack_s}
+    for label, c in compare_cycles(torch, kept, b, kernels).items():
+        out[label].update(c)
+    del kept
+    torch.cuda.empty_cache()
+    if out["tap0"]["refinements"] != out["plain"]["refinements"]:
+        raise AssertionError(f"distributed {n}^2: TAP takes "
+                             f"{out['tap0']['refinements']} refinements, "
+                             f"the plain exchange "
+                             f"{out['plain']['refinements']}")
+    print_cycles(f"distributed {n}^2",
+                 {k: out[k] for k in ("tap0", "plain")})
+    return out
+
+
+def tap_reference_check(torch, n=64):
+    """14c: one float64 TAP V-cycle of a small distributed hierarchy on the
+    card and with the plain versions on the CPU; they must agree to
+    CARD_CPU_TOL of max |x|."""
+    A, ml, _ = tap_setup(n, "distributed", "Chebyshev", 3)
+    b = A.mult(np.ones(A.global_num_rows))
+    out = []
+    for dev in ("cuda", "cpu"):
+        dh = tap_hierarchy(ml, 0, torch.float64, device=dev)
+        out.append(dh.host(dh.vcycle(dh.vector(np.zeros_like(b)),
+                                     dh.vector(b))))
+    err = float(np.abs(out[0] - out[1]).max() / np.abs(out[1]).max())
+    print(f"reference: {n}^2 distributed, one float64 TAP V-cycle, card "
+          f"against CPU {err:.3e} of max |x|")
+    if not err <= CARD_CPU_TOL:
+        raise AssertionError(f"TAP V-cycle: card and CPU differ by {err}")
+    return err
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048, help="2-D grid side")
@@ -1823,6 +2135,14 @@ def main(argv=None):
                                  host_setups, kernels, by_path)
     phase("setup on the card", t0)
 
+    # 14. the topology-aware exchange and the distributed setup
+    t0 = time.perf_counter()
+    summary_tap = {"example": tap_example(torch, kernels, by_path),
+                   "distributed": dist_flagship(torch, n // 2, kernels,
+                                                by_path),
+                   "card_cpu_rel_err": tap_reference_check(torch)}
+    phase("TAP and the distributed setup", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -1851,6 +2171,10 @@ def main(argv=None):
                     name],
                 "2d_bsr": summary_bsr["2d_bsr"]["launches_per_vcycle"][name],
                 "2d_bsr128": summary_bsr["2d_bsr128"][
+                    "launches_per_vcycle"][name],
+                "2d_tap": summary_tap["example"]["cycles"]["tap0"][
+                    "launches_per_vcycle"][name],
+                "2d_dist_tap": summary_tap["distributed"]["tap0"][
                     "launches_per_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
@@ -1874,6 +2198,7 @@ def main(argv=None):
     print(json.dumps({"2d": summary2, "3d": summary3,
                       "2d_sor_krylov": summaryk, "sa": summary_sa,
                       "bsr": summary_bsr, "setup_on_card": summary_card,
+                      "tap": summary_tap,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

@@ -19,7 +19,8 @@ from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import (
     AggType, ProlongType, RelaxType, StrengthType)
 from raptor_tpu_torch.multilevel.level import Level
-from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
+from raptor_tpu_torch.multilevel.par_multilevel import (
+    ParMultilevel, check_setup_mode)
 from raptor_tpu_torch.ruge_stuben.strength import strength
 
 
@@ -27,8 +28,7 @@ class ParSmoothedAggregationSolver(ParMultilevel):
     """MIS(2) aggregation with one constant candidate and Jacobi
     prolongation smoothing. ``setup_mode`` "global" (the default) is the
     only one the port runs; "distributed" (per-shard stages over a
-    transport) waits for ROADMAP Queue 1's ``ruge_stuben/par_setup.py``
-    item and raises."""
+    transport) waits for ROADMAP Queue 1 item 16b and raises."""
 
     def __init__(self, strong_threshold: float = 0.0,
                  agg_type: AggType = AggType.MIS,
@@ -44,15 +44,12 @@ class ParSmoothedAggregationSolver(ParMultilevel):
         self.interp_tol = 1e-10
         self.prolong_smooth_steps = prolong_smooth_steps
         self.prolong_weight = prolong_weight
-        self.setup_mode = "global"
         self.B: np.ndarray = None
 
     def setup(self, af: ParCSRMatrix) -> None:
-        if self.setup_mode != "global":
-            raise NotImplementedError(
-                f"setup_mode={self.setup_mode!r}: the port runs the global "
-                f"setup only; the distributed one waits for ROADMAP Queue 1 "
-                f"item 16 (ruge_stuben/par_setup.py)")
+        check_setup_mode(self.setup_mode, "the distributed smoothed-"
+                         "aggregation setup (ruge_stuben/par_setup.py's "
+                         "SA stages)")
         self.B = np.ones(af.global_num_rows)
         self.setup_helper(af)
 

@@ -77,6 +77,14 @@ class CSRMatrix:
         m.sort_indices()
         return CSRMatrix.from_scipy(m)
 
+    def drop(self, tol: float = ZERO_TOL) -> "CSRMatrix":
+        """Remove entries with |v| <= tol, keeping order."""
+        keep = np.abs(self.data) > tol
+        kept_before = np.concatenate(
+            ([0], np.cumsum(keep, dtype=np.int64)))
+        return CSRMatrix(self.n_rows, self.n_cols, kept_before[self.indptr],
+                         self.indices[keep], self.data[keep])
+
     def mult(self, x: np.ndarray) -> np.ndarray:
         """b = A x (CSR_spmv, util/linalg/spmv.cpp:59)."""
         return self.to_scipy() @ x
@@ -103,6 +111,11 @@ class CSRMatrix:
             self.indices, self.data, other.indptr, other.indices,
             other.data, ZERO_TOL)
         return CSRMatrix(self.n_cols, other.n_cols, indptr, indices, data)
+
+    def add(self, other: "CSRMatrix") -> "CSRMatrix":
+        c = (self.to_scipy() + other.to_scipy()).tocsr()
+        c.sort_indices()
+        return CSRMatrix.from_scipy(c)
 
     def diagonal(self) -> np.ndarray:
         rows = self.row_ids()

@@ -23,7 +23,9 @@ needs of c and of the old x once per sweep (``_tri_sweep``).
 Rows whose first on_proc entry is not the diagonal are left untouched, as in
 the reference (par_relax.cpp:58-64). The functions are named as the JAX
 package's ``*_shard`` functions without the suffix: each one runs every
-shard of the stacked layout in one call.
+shard of the stacked layout in one call. Each takes a trailing ``T``: a
+topology-aware exchange plan (``comm.tap.DeviceTAP``) that its halo
+exchanges go through, or None for the plain exchange.
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.types import ZERO_TOL
 from raptor_tpu_torch.device.formats import ell_arrays, ell_spmv, off_spmv
-from raptor_tpu_torch.device.par import DeviceParCSR, halo_exchange, on_spmv
+from raptor_tpu_torch.device.par import DeviceParCSR, halo, on_spmv
 
 
 def _split_ldu(a: CSRMatrix) -> Tuple[np.ndarray, CSRMatrix, CSRMatrix]:
@@ -312,10 +314,10 @@ def _ad(A: DeviceParCSR, d: torch.Tensor, dist: torch.Tensor):
 
 
 def jacobi(A: DeviceParCSR, RX: DeviceRelax, x, b, num_sweeps: int,
-           omega: float):
+           omega: float, T=None):
     """Hybrid Jacobi (jacobi_helper, par_relax.cpp:121-172)."""
     for _ in range(num_sweeps):
-        dist = halo_exchange(A, x)
+        dist = halo(A, x, T)
         row_sum = (ell_spmv(RX.l_cols, RX.l_vals, x)
                    + ell_spmv(RX.u_cols, RX.u_vals, x) + _off(A, dist))
         x_new = (1.0 - omega) * x + omega * (b - row_sum) * RX.inv_diag
@@ -372,18 +374,18 @@ def sor_backward(A: DeviceParCSR, RX: DeviceRelax, x, y, dist, omega):
     return _tri_sweep(x, c, omega, RX.bwd, backward_form=True)
 
 
-def sor(A, RX, x, b, num_sweeps: int, omega: float):
+def sor(A, RX, x, b, num_sweeps: int, omega: float, T=None):
     """sor_helper (par_relax.cpp:174-186)."""
     for _ in range(num_sweeps):
-        x = sor_forward(A, RX, x, b, halo_exchange(A, x), omega)
+        x = sor_forward(A, RX, x, b, halo(A, x, T), omega)
     return x
 
 
-def ssor(A, RX, x, b, num_sweeps: int, omega: float):
+def ssor(A, RX, x, b, num_sweeps: int, omega: float, T=None):
     """ssor_helper (par_relax.cpp:189-200): one halo exchange, then
     forward + backward sweeps with the same frozen halo."""
     for _ in range(num_sweeps):
-        dist = halo_exchange(A, x)
+        dist = halo(A, x, T)
         x = sor_forward(A, RX, x, b, dist, omega)
         x = sor_backward(A, RX, x, b, dist, omega)
     return x
@@ -397,19 +399,19 @@ def _mc_color_step(A, RX, x, b, off, omega, c):
     return torch.where(RX.color_ok[c], upd, x)
 
 
-def mc_sor(A, RX, x, b, num_sweeps: int, omega: float):
+def mc_sor(A, RX, x, b, num_sweeps: int, omega: float, T=None):
     """Multicolour Gauss-Seidel: n_colors fully parallel steps per sweep
     in place of the sequential level schedule."""
     for _ in range(num_sweeps):
-        off = _off(A, halo_exchange(A, x))
+        off = _off(A, halo(A, x, T))
         for c in range(RX.n_colors):
             x = _mc_color_step(A, RX, x, b, off, omega, c)
     return x
 
 
-def mc_ssor(A, RX, x, b, num_sweeps: int, omega: float):
+def mc_ssor(A, RX, x, b, num_sweeps: int, omega: float, T=None):
     for _ in range(num_sweeps):
-        off = _off(A, halo_exchange(A, x))
+        off = _off(A, halo(A, x, T))
         for c in range(RX.n_colors):
             x = _mc_color_step(A, RX, x, b, off, omega, c)
         for c in range(RX.n_colors):
@@ -418,21 +420,21 @@ def mc_ssor(A, RX, x, b, num_sweeps: int, omega: float):
     return x
 
 
-def l1_jacobi(A, RX, x, b, num_sweeps: int, omega: float):
+def l1_jacobi(A, RX, x, b, num_sweeps: int, omega: float, T=None):
     """l1-Jacobi: x += w * (b - A x) / (a_ii + sum_{j!=i} |a_ij|).
 
     Unconditionally convergent for SPD A (the l1 diagonal dominates the
     row); hypre's default GPU smoother. The reference offers
     Jacobi/SOR/SSOR only (util/linalg/par_relax.cpp)."""
     for _ in range(num_sweeps):
-        r = b - _ad(A, x, halo_exchange(A, x))
+        r = b - _ad(A, x, halo(A, x, T))
         x = torch.where(RX.has_diag > 0, x + omega * r * RX.inv_l1_diag, x)
     return x
 
 
 def chebyshev(A: DeviceParCSR, RX: DeviceRelax, x: torch.Tensor,
-              b: torch.Tensor, num_sweeps: int,
-              omega: float = 1.0) -> torch.Tensor:
+              b: torch.Tensor, num_sweeps: int, omega: float = 1.0,
+              T=None) -> torch.Tensor:
     """Chebyshev polynomial smoother of degree ``num_sweeps`` on
     [cheb_lo, cheb_hi] of D^{-1} A: one SpMV per degree. ``omega`` is
     unused (the polynomial fixes the weights)."""
@@ -441,13 +443,13 @@ def chebyshev(A: DeviceParCSR, RX: DeviceRelax, x: torch.Tensor,
     delta = 0.5 * (RX.cheb_hi - RX.cheb_lo)
     sigma = theta / delta
 
-    r = b - _ad(A, x, halo_exchange(A, x))
+    r = b - _ad(A, x, halo(A, x, T))
     z = r * RX.inv_diag * RX.has_diag
     d = z / theta
     x = x + d
     rho = 1.0 / sigma
     for _ in range(1, degree):
-        r = r - _ad(A, d, halo_exchange(A, d))
+        r = r - _ad(A, d, halo(A, d, T))
         z = r * RX.inv_diag * RX.has_diag
         rho_new = 1.0 / (2.0 * sigma - rho)
         d = rho_new * rho * d + (2.0 * rho_new / delta) * z

@@ -41,7 +41,7 @@ from raptor_tpu_torch.device.par import (
 from raptor_tpu_torch.multilevel.device_hierarchy import _coarse_plumbing
 from raptor_tpu_torch.multilevel.level import Level
 from raptor_tpu_torch.multilevel.par_multilevel import (
-    ParMultilevel, ParRugeStubenSolver)
+    ParMultilevel, ParRugeStubenSolver, check_setup_mode)
 from raptor_tpu_torch.profiling.timers import Profiler
 from raptor_tpu_torch.ruge_stuben import cf_splitting as cf
 from raptor_tpu_torch.ruge_stuben.interpolation import (
@@ -105,7 +105,7 @@ class ParBSRRugeStubenSolver(ParMultilevel):
     per-component interpolation, scalar-native Galerkin RAP (the result
     stays block-structured because P is block-diagonal). ``max_coarse``
     counts nodes. Only the global setup mode is ported:
-    ``setup_mode = "distributed"`` raises."""
+    ``setup_mode = "distributed"`` raises (ROADMAP Queue 1 item 16b)."""
 
     # RS is split_rs_entry on every level (no switch to Falgout)
     SPLITS = ParRugeStubenSolver.SPLITS
@@ -120,16 +120,12 @@ class ParBSRRugeStubenSolver(ParMultilevel):
         self.coarsen_type = coarsen_type
         self.interp_type = interp_type
         self.max_coarse = 50  # nodes
-        self.setup_mode = "global"
         # per level, the b nodal component prolongators
         self.p_nodals: List[List[CSRMatrix]] = []
 
     def setup(self, af: ParCSRMatrix) -> None:
-        if self.setup_mode != "global":
-            raise NotImplementedError(
-                f"setup_mode={self.setup_mode!r}: the distributed blocked "
-                f"setup (ruge_stuben/par_setup.py, bsr_extend_distributed) "
-                f"is not ported yet (ROADMAP Queue 1 item 16)")
+        check_setup_mode(self.setup_mode, "the distributed blocked setup "
+                         "(ruge_stuben/par_setup.py, bsr_extend_distributed)")
         b = self.block_size
         n = af.global_num_rows
         if n % b:
@@ -252,6 +248,11 @@ class BSRDeviceHierarchy:
     def __init__(self, ml: ParBSRRugeStubenSolver, dtype=torch.float64,
                  omega: float = 2.0 / 3.0, sweeps: int = 2,
                  lane_pad: int = None, device="cuda"):
+        if ml.tap_amg >= 0:
+            raise NotImplementedError(
+                f"tap_amg = {ml.tap_amg}: the blocked V-cycle has no "
+                f"topology-aware exchange (the JAX package's has none "
+                f"either); set tap_amg = -1")
         self.device = dpar.resolve_device(device)
         if lane_pad is None:
             lane_pad = 128 if self.device.type == "cuda" else 1

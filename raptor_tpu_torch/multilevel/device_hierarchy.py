@@ -1,6 +1,7 @@
 """Device-resident AMG hierarchy and V-cycle solve (copy of
 raptor_tpu.multilevel.device_hierarchy: construction, V-cycle, solve,
-mixed-precision refinement and the preconditioner of the Krylov solvers).
+mixed-precision refinement, the preconditioner of the Krylov solvers and
+the topology-aware exchange of the ``tap_amg`` levels).
 
 The solve-phase half of ParMultilevel (multilevel/par_multilevel.hpp:
 335-540): every level becomes a stacked-shard device plan (matrix,
@@ -8,7 +9,12 @@ smoother plan, prolongator P and its transpose; restriction is a forward
 SpMV on the packed P^T). The iteration is a Python loop that reads the
 residual norm back once per cycle for the convergence test. The dense
 coarse solve (par_multilevel.hpp:223-333, :347-369) gathers the coarse
-right-hand side of every shard and runs one LU solve.
+right-hand side of every shard and runs one LU solve. From level
+``ml.tap_amg`` down (the reference's knob, par_multilevel.hpp:88; -1 turns
+it off) every SpMV and smoother halo of the cycle goes through the
+topology-aware exchange (``comm.tap``) of a (host, local) shard layout
+(``device.par.make_mesh2``); the mixed-precision residual and the Krylov
+operators keep the plain exchange, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +25,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from raptor_tpu_torch.comm.tap import (
+    DeviceTAP, build_tap_plan, device_put_tap)
 from raptor_tpu_torch.core.types import RelaxType
 from raptor_tpu_torch.device import par as dpar
 from raptor_tpu_torch.device.par import (
@@ -42,6 +50,11 @@ class DeviceLevel:
     RX: DeviceRelax
     P: Optional[DeviceParCSR]    # None on the coarsest level
     Pt: Optional[DeviceParCSR]
+    # topology-aware exchange plans of A, P and P^T (None unless
+    # 0 <= tap_amg <= level)
+    TA: Optional[DeviceTAP] = None
+    TP: Optional[DeviceTAP] = None
+    TPt: Optional[DeviceTAP] = None
 
 
 @dataclasses.dataclass
@@ -74,11 +87,21 @@ class DeviceHierarchy:
     ``lane_pad`` defaults to 128 on CUDA (the TPU's padding, which makes
     the TPU's DIA/BDIA/embedding picks) and 1 elsewhere. Operators headed
     for ELL take the transfer format that streams the fewest bytes
-    (``device.par``)."""
+    (``device.par``). ``mesh`` is the (host, local) layout
+    (``device.par.make_mesh2``) that ``ml.tap_amg >= 0`` needs."""
 
     def __init__(self, ml: ParMultilevel, dtype=torch.float64,
-                 lane_pad: int = None, device="cuda"):
+                 lane_pad: int = None, device="cuda", mesh=None):
         self.device = dpar.resolve_device(device)
+        self.tap_amg = ml.tap_amg
+        if self.tap_amg >= 0 and not (
+                isinstance(mesh, dpar.Mesh2)
+                and mesh.n_shards == ml.levels[0].A.n_shards):
+            raise ValueError(
+                f"tap_amg = {self.tap_amg} needs mesh=make_mesh2(H, L) "
+                f"with H * L = {ml.levels[0].A.n_shards} shards, not "
+                f"{mesh!r}")
+        self.mesh = mesh
         if lane_pad is None:
             lane_pad = 128 if self.device.type == "cuda" else 1
         self.lane_pad = lane_pad
@@ -97,18 +120,28 @@ class DeviceHierarchy:
 
         put = dict(dtype=dtype, lane_pad=lane_pad, need_transpose=False,
                    device=self.device)
+
+        def tap(m):
+            return device_put_tap(build_tap_plan(m, *mesh.shape), dtype,
+                                  self.device)
+
         levels: List[DeviceLevel] = []
-        for lvl in ml.levels:
+        for i, lvl in enumerate(ml.levels):
+            tap_level = 0 <= self.tap_amg <= i
             dA = device_put_matrix(lvl.A, **put)
-            dP = dPt = None
+            dP = dPt = TP = TPt = None
             if lvl.P is not None:
                 # the coarse axis embedded at fine-aligned anchors, so the
                 # transfer operators format as DIA/BDIA
+                pt = lvl.P.transpose()
                 dP = device_put_matrix(lvl.P, embed="cols", **put)
-                dPt = device_put_matrix(lvl.P.transpose(), embed="rows",
-                                        **put)
+                dPt = device_put_matrix(pt, embed="rows", **put)
+                if tap_level:
+                    TP, TPt = tap(lvl.P), tap(pt)
             dRX = build_relax(lvl.A, dA, need=RELAX_NEED[self.relax_kind])
-            levels.append(DeviceLevel(dA, dRX, dP, dPt))
+            levels.append(DeviceLevel(dA, dRX, dP, dPt,
+                                      tap(lvl.A) if tap_level else None,
+                                      TP, TPt))
         self.levels: Tuple[DeviceLevel, ...] = tuple(levels)
 
         # dense coarse LU: scipy's 0-based pivots are sequential row swaps,
@@ -151,10 +184,11 @@ class DeviceHierarchy:
     # --- the cycle --------------------------------------------------------------
     def relax(self, lvl: DeviceLevel, x: torch.Tensor,
               b: torch.Tensor) -> torch.Tensor:
-        """The hierarchy's smoother on one level."""
+        """The hierarchy's smoother on one level (its halo through the
+        level's TAP plan when it has one)."""
         return RELAX_FNS[self.relax_kind](lvl.A, lvl.RX, x, b,
                                           self.num_smooth_sweeps,
-                                          self.relax_weight)
+                                          self.relax_weight, lvl.TA)
 
     def coarse_solve(self, row_mask: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
@@ -172,19 +206,19 @@ class DeviceHierarchy:
         if level == len(self.levels) - 1:
             return self.coarse_solve(lvl.A.row_mask, b)
         x = self.relax(lvl, x, b)
-        r = b - spmv(lvl.A, x)
-        bc = spmv(lvl.Pt, r)                     # restriction
+        r = b - spmv(lvl.A, x, lvl.TA)
+        bc = spmv(lvl.Pt, r, lvl.TPt)           # restriction
         xc = torch.zeros((bc.shape[0], lvl.Pt.rows_pad), dtype=b.dtype,
                          device=b.device)
         xc = self.vcycle(xc, bc, level + 1)
-        x = x + spmv(lvl.P, xc)                  # prolongation
+        x = x + spmv(lvl.P, xc, lvl.TP)         # prolongation
         return self.relax(lvl, x, b)
 
     # --- solves ----------------------------------------------------------------
     def solve(self, x: torch.Tensor, b: torch.Tensor) -> SolveResult:
         """Iterated V-cycles to ``solve_tol`` (par_multilevel.hpp:461-540);
         x, b: stacked [S, R] device vectors (see ``vector``)."""
-        A0 = self.levels[0].A
+        A0, T0 = self.levels[0].A, self.levels[0].TA
         max_iter = self.max_iterations
         b_norm = float(dpar.norm(b))
 
@@ -197,13 +231,13 @@ class DeviceHierarchy:
         if stall_run <= 0:
             stall_run = max_iter + 1        # never trips
 
-        r_norm = rel_norm(b - spmv(A0, x))
+        r_norm = rel_norm(b - spmv(A0, x, T0))
         res = np.full(max_iter + 1, -1.0)
         res[0] = r_norm
         k = run = 0
         while r_norm > self.solve_tol and k < max_iter and run < stall_run:
             x = self.vcycle(x, b)
-            new_norm = rel_norm(b - spmv(A0, x))
+            new_norm = rel_norm(b - spmv(A0, x, T0))
             run = run + 1 if new_norm > stall_ratio * r_norm else 0
             r_norm = new_norm
             k += 1

@@ -15,7 +15,10 @@ on the host or on the device engine (``device.interp``,
 ``interpolation.DEVICE_MIN_NNZ`` nonzeros when ``device`` is a CUDA card
 that is present. ``level_engines`` records, level by level, which engine
 ran each and why the host ran in place of a device engine (its width
-cap; every other error of a device engine propagates).
+cap; every other error of a device engine propagates). With
+``setup_mode = "distributed"`` the RS solver extends the hierarchy through
+the per-shard stages of ``ruge_stuben.par_setup`` over the in-process
+transport instead, on the host whatever the engine knobs say.
 ``multilevel.device_hierarchy.DeviceHierarchy`` then packs the levels for
 the device solve.
 """
@@ -29,17 +32,34 @@ import numpy as np
 import scipy.linalg
 
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import (
-    CoarsenType, InterpType, RelaxType, StrengthType)
+    CFState, CoarsenType, InterpType, RelaxType, StrengthType)
 from raptor_tpu_torch.device import spgemm as dsp
 from raptor_tpu_torch.multilevel.level import Level
 from raptor_tpu_torch.profiling.timers import Profiler
 from raptor_tpu_torch.ruge_stuben import cf_splitting as cf
 from raptor_tpu_torch.ruge_stuben import interpolation as interp
+from raptor_tpu_torch.ruge_stuben import par_setup as ps
 from raptor_tpu_torch.ruge_stuben.interpolation import (
     filter_interp, par_interpolation)
 from raptor_tpu_torch.ruge_stuben.strength import strength
 from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+
+SETUP_MODES = ("global", "distributed")
+
+
+def check_setup_mode(mode: str, unported_distributed: str = None) -> None:
+    """Raise for a ``setup_mode`` other than "global" or "distributed",
+    and for "distributed" on a solver whose distributed setup
+    (``unported_distributed``, named) is not ported yet (ROADMAP Queue 1
+    item 16b)."""
+    if mode not in SETUP_MODES:
+        raise ValueError(f"setup_mode {mode!r}; one of {SETUP_MODES}")
+    if mode == "distributed" and unported_distributed:
+        raise NotImplementedError(
+            f"setup_mode='distributed': {unported_distributed} is not "
+            f"ported yet (ROADMAP Queue 1 item 16b)")
 
 
 class ParMultilevel:
@@ -55,9 +75,19 @@ class ParMultilevel:
         self.relax_weight = 1.0
         self.max_coarse = 50
         self.max_levels = 25
+        # "global": each setup stage over the global matrix; "distributed":
+        # the per-shard stages (``ruge_stuben.par_setup``, RS only)
+        self.setup_mode = "global"
+        # the first level whose V-cycle exchanges halos through the
+        # topology-aware plan (par_multilevel.hpp:88); -1: none
+        self.tap_amg = -1
         self.weights: Optional[np.ndarray] = None
         self.solve_tol = 1e-07
         self.max_iterations = 100
+        # systems AMG (unknown-based strength and interpolation); the RS
+        # solver raises for anything but the scalar default
+        self.num_variables = 1
+        self.variables: Optional[np.ndarray] = None
         self.levels: List[Level] = []
         self.coarse_lu = None  # set by duplicate_coarse
         # setup phase timers (the reference's track_times,
@@ -198,7 +228,11 @@ class ParRugeStubenSolver(ParMultilevel):
     there), CLJP, Falgout, PMIS or HMIS coarsening, and direct,
     modified-classical or extended+i interpolation. Extended+i is filtered
     with ``interp_filter`` under every coarsening
-    (par_ruge_stuben_solver.hpp:121)."""
+    (par_ruge_stuben_solver.hpp:121). ``setup_mode`` "global" (the
+    default) runs each stage over the global matrix; "distributed" runs
+    the per-shard stages (``_extend_hierarchy_distributed``). Systems AMG
+    (``num_variables != 1``, ``variables``) and RAP sparsification
+    (``sparsify_tol > 0``) raise: ROADMAP Queue 1 item 21."""
 
     SPLITS = {CoarsenType.CLJP: cf.split_cljp,
               CoarsenType.Falgout: cf.split_falgout,
@@ -218,8 +252,30 @@ class ParRugeStubenSolver(ParMultilevel):
         self.interp_type = interp_type
         self.interp_filter = 0.3  # applied to extended+i only
 
+    def setup(self, af: ParCSRMatrix) -> None:
+        """Raises, before any level is built, for a knob the port does not
+        run."""
+        check_setup_mode(self.setup_mode)
+        unported = [k for k, on in (
+            ("num_variables", self.num_variables != 1),
+            ("variables", self.variables is not None),
+            ("sparsify_tol", getattr(self, "sparsify_tol", 0.0) > 0)) if on]
+        if unported:
+            raise NotImplementedError(
+                f"{', '.join(unported)} set: systems AMG and RAP "
+                f"sparsification are not ported yet (ROADMAP Queue 1 item "
+                f"21)")
+        if (self.setup_mode == "distributed"
+                and self.strength_type != StrengthType.Classical):
+            raise NotImplementedError(
+                "setup_mode='distributed' runs classical strength only, as "
+                "the JAX package's does")
+        super().setup(af)
+
     def extend_hierarchy(self) -> None:
         """par_ruge_stuben_solver.hpp:56-177: S -> split -> P -> RAP."""
+        if self.setup_mode == "distributed":
+            return self._extend_hierarchy_distributed()
         level_ctr = len(self.levels) - 1
         a = self.levels[level_ctr].A
         with self.setup_times.phase("strength"):
@@ -250,3 +306,67 @@ class ParRugeStubenSolver(ParMultilevel):
         with self.setup_times.phase("RAP"):
             _, ac = self._galerkin(a, p)
         self.levels.append(Level(A=ac))
+
+    def _extend_hierarchy_distributed(self) -> None:
+        """The same level extension through the per-shard + transport
+        stages (``ruge_stuben.par_setup``): classical strength only; RS
+        runs the distributed Falgout hybrid (interior RS + boundary CLJP)
+        on every level. All on the host: ``level_engines`` records "host"
+        with the reason "setup_mode=distributed"."""
+        level_ctr = len(self.levels) - 1
+        a = self.levels[level_ctr].A
+        n = a.global_num_rows
+        w = self.weights[:n]
+        for step in ("interp", "rap"):
+            self._record_engine(step, "host", "setup_mode=distributed")
+
+        with self.setup_times.phase("strength"):
+            masks = ps.dist_classical_strength(a, self.strong_threshold)
+            s = ps.strength_masks_to_par(a, masks)
+
+        ct = self.coarsen_type
+        with self.setup_times.phase("cf_splitting"):
+            if ct in (CoarsenType.RS, CoarsenType.Falgout):
+                # the per-shard analog of split_rs is the Falgout hybrid
+                states = ps.dist_split_falgout(s, w)
+            elif ct == CoarsenType.CLJP:
+                states = ps.dist_split_cljp(s, w)
+            elif ct == CoarsenType.PMIS:
+                states = ps.dist_split_pmis(s, w)
+            elif ct == CoarsenType.HMIS:
+                states = ps.dist_split_hmis(s, w)
+            else:
+                raise ValueError(f"unknown coarsen type {ct}")
+
+        it = self.interp_type
+        with self.setup_times.phase("interpolation"):
+            if it == InterpType.Direct:
+                pg = ps.dist_direct_interpolation(a, masks, states)
+            elif it == InterpType.ModClassical:
+                pg = ps.dist_mod_classical_interpolation(a, s, states)
+            elif it == InterpType.Extended:
+                pg = filter_interp(
+                    ps.dist_extended_interpolation(a, s, states),
+                    self.interp_filter)
+            else:
+                raise ValueError(f"unknown interp type {it}")
+
+        # P inherits A's row partition; coarse cols owned where their
+        # C-points live (par_interpolation.cpp partition rule)
+        row_bounds = a.partition.row_bounds
+        sel = np.asarray(states) == CFState.Selected
+        csum = np.concatenate([[0], np.cumsum(sel)])
+        col_bounds = csum[row_bounds].astype(np.int64)
+        part_p = Partition(a.global_num_rows, pg.n_cols,
+                           a.partition.n_shards, row_bounds, col_bounds)
+        self.levels[level_ctr].P = ParCSRMatrix(pg, part_p)
+
+        with self.setup_times.phase("RAP"):
+            t0 = time.perf_counter()
+            ac = ps.dist_rap(a, pg, coarse_bounds=col_bounds)
+            self.rap_stats.append(
+                (level_ctr, ac.nnz, time.perf_counter() - t0))
+        part_c = Partition(pg.n_cols, pg.n_cols, a.partition.n_shards,
+                           col_bounds, col_bounds)
+        self.levels.append(Level(A=ParCSRMatrix(ac.canonicalize(),
+                                                part_c)))

@@ -10,7 +10,9 @@ CLJP loop, mark-strong, modified-classical interpolation, glibc ``rand()``,
 the stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
 interpolation and its pattern bound, the operand packing of the device
 interpolation engines, the smoothers' greedy colouring and triangular
-level schedule, and smoothed aggregation's MIS(2) and aggregation passes. Both packages then build
+level schedule, smoothed aggregation's MIS(2) and aggregation passes,
+and the per-round weight update of the distributed CLJP splitting. Both
+packages then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
 """
@@ -98,6 +100,7 @@ def load():
             _i64, I64, I64, F64, ctypes.c_double, I64, I64, F64]
         lib.symmetric_strength_csr.restype = _i64
         lib.mis2.argtypes = [_i64] + [I64] * 4 + [F64, I64]
+        lib.dist_cljp_update.argtypes = [_i64] * 3 + [I64] * 13 + [F64] * 2
         lib.aggregate.argtypes = [_i64] + [I64] * 4 + [F64, I64, F64, I64]
         lib.aggregate.restype = _i64
         lib.split_pattern.argtypes = [_i64, _i64] + [I64] * 6
@@ -126,6 +129,7 @@ def load():
                    lib.cljp_main_loop, lib.pmis_main_loop, lib.mark_strong,
                    lib.glibc_rand_doubles, lib.spgemm_fetch,
                    lib.finalize_interp, lib.level_schedule, lib.mis2,
+                   lib.dist_cljp_update,
                    lib.interp_dev_widths, lib.interp_dev_pack,
                    lib.interp_dev_widths_mc, lib.interp_dev_pack_mc):
             fn.restype = None
@@ -404,12 +408,14 @@ def symmetric_strength_csr(indptr, indices, data, theta):
     return out_indptr, out_indices[:m], out_data[:m]
 
 
-def _check_out(a, n, name):
-    """An array the native code writes in place: contiguous int64 of n."""
-    if not (isinstance(a, np.ndarray) and a.dtype == np.int64
+def _check_out(a, n, name, dtype=np.int64):
+    """An array the native code writes in place: contiguous ``dtype`` of
+    n entries (a converted copy would leave the caller's array as it
+    was)."""
+    if not (isinstance(a, np.ndarray) and a.dtype == dtype
             and a.flags.c_contiguous and a.shape == (n,)):
-        raise ValueError(f"{name} must be a contiguous int64 array of "
-                         f"{n} entries")
+        raise ValueError(f"{name} must be a contiguous {np.dtype(dtype)} "
+                         f"array of {n} entries")
 
 
 def mis2(indptr, indices, cindptr, cindices, r, states):
@@ -427,6 +433,38 @@ def mis2(indptr, indices, cindptr, cindices, r, states):
     lib.mis2(n, _p(indptr, I64), _p(indices, I64),
              _p(cindptr, I64), _p(cindices, I64), _p(r, F64),
              _p(states, I64))
+
+
+def dist_cljp_update(n, h, first_local_col, on_indptr, on_indices,
+                     off_indptr, off_indices, hp_indptr, hp_cols, cmap,
+                     st, hstU, sel, hnew, edgemark_on, edgemark_off,
+                     w, off_dec):
+    """One round of the distributed CLJP weight updates
+    (par_cf_splitting.cpp:590-708) on one shard of ``n`` rows and ``h``
+    halo columns: in place on ``edgemark_on`` / ``edgemark_off``
+    (contiguous int64, one per entry of the on / off pattern), ``w``
+    (contiguous float64 of n) and ``off_dec`` (contiguous float64 of h).
+    ``hp_*`` are the prefetched halo S row patterns in global columns,
+    ``cmap`` the shard's off_proc column map."""
+    lib = load()
+    on_indptr, off_indptr = _c(on_indptr), _c(off_indptr)
+    if len(on_indptr) != n + 1 or len(off_indptr) != n + 1:
+        raise ValueError("dist_cljp_update: patterns do not have n rows")
+    _check_out(edgemark_on, int(on_indptr[-1]), "edgemark_on")
+    _check_out(edgemark_off, int(off_indptr[-1]), "edgemark_off")
+    _check_out(w, n, "w", np.float64)
+    _check_out(off_dec, h, "off_dec", np.float64)
+    args = [on_indptr, _c(on_indices), off_indptr, _c(off_indices),
+            _c(hp_indptr), _c(hp_cols), _c(cmap), _c(st), _c(hstU),
+            _c(sel), _c(hnew)]
+    # hp_indptr, cmap, st, hstU, sel, hnew
+    if [len(a) for a in args[4:5] + args[6:]] != [h + 1, h, n, h, n, h]:
+        raise ValueError("dist_cljp_update: halo or state arrays do not "
+                         "match n and h")
+    lib.dist_cljp_update(
+        n, h, first_local_col, *[_p(a, I64) for a in args],
+        _p(edgemark_on, I64), _p(edgemark_off, I64), _p(w, F64),
+        _p(off_dec, F64))
 
 
 def aggregate(s_indptr, s_indices, a_indptr, a_indices, a_data, states, r,
