@@ -98,7 +98,26 @@ exit code and no result line:
    level refined to 1e-8 with b = A 1 in at most 20 refinements, as many
    as with the plain exchange. (c) one float64 TAP V-cycle of a 64^2
    distributed hierarchy on the card and on the CPU: equal to 1e-12 of
-   max |x|.
+   max |x|;
+15. the distributed smoothed-aggregation and blocked setups and the SPMD
+   bridge (``comm.spmd``, ``DeviceHierarchy.from_spmd``), shards stacked on
+   the card, host engines. (a) 14b's problem through ``spmd_rs_setup``
+   (its level sizes, its operators and P within 1e-12) packed by
+   ``from_spmd`` with the plain exchange and with TAP on every level: 14b's
+   refinements to 1e-8 with b = A 1, DIA and BDIA launched, ``vector_local``
+   equal to ``vector``, the setup seconds beside 14b's, one V-cycle's
+   device / enqueue / busy ms and launches. (b) phase 11's smoothed
+   aggregation at 64^3 on 8 shards: ``setup_mode = "distributed"`` (the
+   JAX package's distributed level sizes), ``spmd_sa_setup`` equal to it
+   level by level, ``from_spmd`` refined to 1e-8 in at most the JAX
+   package's refinements + 1. (c) blocked AMG at 128 x 64 elements on 4
+   shards, CLJP + modified classical: ``setup_mode = "distributed"`` (the
+   JAX package's level sizes, at most its blocked V-cycles to 1e-6 and
+   BSR-PCG iterations to 1e-10), ``spmd_bsr_setup`` equal to it level by
+   level after a common 1e-14 drop. (d) one float64 V-cycle of a 64^2
+   ``from_spmd`` hierarchy on the card and on the CPU: equal to 1e-12 of
+   max |x|. Its seconds and a JSON summary line (``phase15``) come before
+   the kernel list.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -1806,7 +1825,8 @@ def dist_flagship(torch, n, kernels, by_path):
     TAP_LAYOUT, Chebyshev(3), float32, TAP on every level, refined to 1e-8
     with b = A 1 in at most 20 refinements, equal to the plain exchange's
     on the same hierarchy; the setup's phase split beside the global
-    setup's of the same problem."""
+    setup's of the same problem. Returns (summary, A, the setup), which
+    phase 15 reuses."""
     A, ml, setup_s = tap_setup(n, "distributed", "Chebyshev", 3)
     levels = level_sizes(f"distributed {n}^2", ml, DIST_LEVELS.get(n))
     print(f"distributed setup {n}^2 on {TAP_LAYOUT[0] * TAP_LAYOUT[1]} "
@@ -1849,7 +1869,7 @@ def dist_flagship(torch, n, kernels, by_path):
                              f"{out['plain']['refinements']}")
     print_cycles(f"distributed {n}^2",
                  {k: out[k] for k in ("tap0", "plain")})
-    return out
+    return out, A, ml
 
 
 def tap_reference_check(torch, n=64):
@@ -1868,6 +1888,326 @@ def tap_reference_check(torch, n=64):
           f"against CPU {err:.3e} of max |x|")
     if not err <= CARD_CPU_TOL:
         raise AssertionError(f"TAP V-cycle: card and CPU differ by {err}")
+    return err
+
+
+# phase 15: the distributed SA and blocked setups and the SPMD bridge, on
+# 8 stacked shards (4 for the blocked problem, whose shards must hold whole
+# nodes), the host engines. 15b: the JAX package's distributed SA level
+# sizes at 64^3 on 8 shards and its refinements to 1e-8 (float32
+# Chebyshev(2), b = A 1; the port may take one more), from a CPU run of
+# the JAX package:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+#   python -c "import sys, numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.aggregation.solver import ParSmoothedAggregationSolver \
+#   as SA; from raptor_tpu.core.types import RelaxType; from \
+#   raptor_tpu.device.par import make_mesh; from raptor_tpu.gallery.stencils \
+#   import laplace_stencil_27pt as L, par_stencil_grid as G; from \
+#   raptor_tpu.multilevel.device_hierarchy import DeviceHierarchy as DH; \
+#   n = int(sys.argv[1]); A = G(L(), (n,) * 3, 8); ml = SA(0.0, \
+#   relax_type=RelaxType.Chebyshev); ml.num_smooth_sweeps = 2; \
+#   ml.setup_mode = 'distributed'; ml.setup(A); b = A.mult(np.ones(n ** 3)); \
+#   _, h = DH(ml, make_mesh(8), dtype=jnp.float32).solve_mixed( \
+#   np.zeros(n ** 3), b, tol=1e-8, max_iter=200); print([l.A.global_num_rows \
+#   for l in ml.levels], len(h) - 1, h[-1])" 64
+SPMD_SA_N = 64
+SPMD_SA_LEVELS = [262144, 6101, 86, 1]
+SPMD_SA_REFINEMENTS = 27
+# 15c: the JAX package's distributed blocked level sizes at 128 x 64
+# elements on 4 shards (CLJP + modified classical, theta 0.25), its blocked
+# V-cycles to 1e-6 and BSR-PCG iterations to 1e-10 (float64, b = A 1,
+# block Chebyshev(3)), the most the port may take:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=4 \
+#   python -c "import sys, numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.core.types import CoarsenType as C; from raptor_tpu.device \
+#   import par as dp; from raptor_tpu.gallery.fem import par_fem; from \
+#   raptor_tpu.krylov.cg import cg; from raptor_tpu.multilevel.bsr_hierarchy \
+#   import BSRDeviceHierarchy as BDH, ParBSRRugeStubenSolver as BRS; \
+#   nx, ny = int(sys.argv[1]), int(sys.argv[2]); A, _ = par_fem('elasticity', \
+#   nx, ny, 4); ml = BRS(2, 0.25, coarsen_type=C.CLJP); ml.setup_mode = \
+#   'distributed'; ml.setup(A); m = dp.make_mesh(4); dh = BDH(ml, m, \
+#   sweeps=3); b = A.mult(np.ones(A.global_num_rows)); _, h, k = dh.solve( \
+#   dh.vector(0 * b), dh.vector(b), tol=1e-6, max_iter=100); Ab = \
+#   ml.levels[0].A; dA = dp.device_put_matrix(Ab, m, dtype=jnp.float64, \
+#   need_transpose=False); v = lambda y: dp.device_put_vector(y, \
+#   Ab.partition.row_bounds, dA.rows_pad, m); r = cg(m, dA, v(0 * b), v(b), \
+#   tol=1e-10, max_iter=200, precond=dh.precond_pack()); \
+#   print([l.A.global_num_rows for l in ml.levels], int(k), int(r.n_iters))" \
+#   128 64
+SPMD_BSR = (128, 64)
+SPMD_BSR_SHARDS = 4
+SPMD_BSR_LEVELS = [16640, 5188, 1894, 764, 302, 110, 42]
+SPMD_BSR_CYCLES = 44
+SPMD_BSR_PCG = 28
+SPMD_CPU_N = 64       # 15d: the card-against-CPU check's side
+SPMD_TOL = 1e-12      # 15b / 15c: values of the two setups, relative
+
+
+def stacked(blocks):
+    """Per-shard row blocks (global columns) stacked into one CSR."""
+    import scipy.sparse as sp
+    from raptor_tpu_torch.core.matrix import CSRMatrix
+    g = sp.vstack([b.to_scipy() for b in blocks]).tocsr()
+    g.sort_indices()
+    return CSRMatrix.from_scipy(g)
+
+
+def spmd_levels_close(what, refs, gots):
+    """Two setups' matrices (CSR), level by level: equal patterns after a
+    common 1e-14 drop, values within SPMD_TOL of the level's largest;
+    returns the largest relative difference."""
+    worst = 0.0
+    for i, (r, g) in enumerate(zip(refs, gots)):
+        r, g = r.drop(1e-14), g.drop(1e-14)
+        if not (np.array_equal(r.indptr, g.indptr)
+                and np.array_equal(r.indices, g.indices)):
+            raise AssertionError(f"{what}: level {i}'s pattern differs")
+        err = float(np.abs(r.data - g.data).max(initial=0.0)
+                    / max(np.abs(r.data).max(initial=0.0), 1e-300))
+        worst = max(worst, err)
+    if len(refs) != len(gots) or not worst <= SPMD_TOL:
+        raise AssertionError(f"{what}: {len(gots)} levels against "
+                             f"{len(refs)}, values {worst:.3e} apart")
+    return worst
+
+
+def spmd_close(what, ml, hier):
+    """A setup_mode="distributed" hierarchy and the SPMD one of the same
+    problem: every level's operator and P (``spmd_levels_close``)."""
+    return max(
+        spmd_levels_close(what, [lvl.A.global_csr for lvl in ml.levels],
+                          [lvl.a_local.assemble_global()
+                           for lvl in hier.levels]),
+        spmd_levels_close(f"{what} P",
+                          [lvl.P.global_csr for lvl in ml.levels[:-1]],
+                          [stacked(lvl.p_blocks)
+                           for lvl in hier.levels[:-1]]))
+
+
+def spmd_bridge(torch, ml, A, dist, kernels, by_path):
+    """15a: the whole-hierarchy per-rank setup of 14b's problem, its level
+    sizes those of 14b's setup_mode="distributed" hierarchy (``ml``), packed
+    by ``DeviceHierarchy.from_spmd`` with the plain exchange and with TAP
+    on every level; each refined to 1e-8 with b = A 1 in 14b's refinements
+    (``dist``), vector_local equal to vector."""
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.comm.transport import InProcessTransport
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device.par import make_mesh2
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    n = dist["n"]
+    t0 = time.perf_counter()
+    hier = spmd_rs_setup(A, ml.weights, InProcessTransport)
+    setup_s = time.perf_counter() - t0
+    levels = [lvl.a_local.global_num_rows for lvl in hier.levels]
+    print(f"SPMD setup {n}^2 (spmd_rs_setup): levels {levels} in "
+          f"{setup_s:.3f} s; setup_mode='distributed' (14b) "
+          f"{dist['setup_s']:.3f} s")
+    if levels != dist["levels"]:
+        raise AssertionError(f"spmd_rs_setup {n}^2: levels {levels}, 14b's "
+                             f"{dist['levels']}")
+    worst = spmd_close(f"spmd_rs_setup {n}^2", ml, hier)
+    b = A.mult(np.ones(A.global_num_rows))
+    out = {"n": n, "levels": levels, "setup_s": setup_s,
+           "dist_setup_s": dist["setup_s"], "setup_rel_diff": worst}
+    kept = {}
+    for label, tap_amg in (("plain", -1), ("tap0", 0)):
+        t0 = time.perf_counter()
+        dh = kept[label] = DeviceHierarchy.from_spmd(
+            hier, InProcessTransport, relax_type=RelaxType.Chebyshev,
+            num_smooth_sweeps=3, dtype=torch.float32,
+            mesh=make_mesh2(*TAP_LAYOUT), tap_amg=tap_amg)
+        torch.cuda.synchronize()
+        pack_s = time.perf_counter() - t0
+        key = f"spmd{n}_{label}"
+        k, by_path[key], solve_s = drive_solve(
+            torch, dh, A, b, f"SPMD bridge {n}^2, {label}", kernels,
+            limit=CARD_RS_CAP)
+        require_launches(f"SPMD bridge {n}^2 {label}", by_path[key])
+        if k != dist["plain"]["refinements"]:
+            raise AssertionError(f"SPMD bridge {n}^2 {label}: {k} "
+                                 f"refinements, 14b's "
+                                 f"{dist['plain']['refinements']}")
+        out[label] = {"refinements": k, "solve_s_first": solve_s,
+                      "pack_s": pack_s}
+    dh = kept["plain"]
+    rb = A.partition.row_bounds
+    locs = [b[int(rb[s]):int(rb[s + 1])] for s in range(len(rb) - 1)]
+    if not torch.equal(dh.vector_local(locs), dh.vector(b)):
+        raise AssertionError("vector_local differs from vector")
+    print("\n".join(dh.format_summary()))
+    for label, c in compare_cycles(torch, kept, b, kernels).items():
+        out[label].update(c)
+    print_cycles(f"SPMD bridge {n}^2", {k: out[k] for k in kept})
+    return out
+
+
+def spmd_sa(torch, kernels, by_path):
+    """15b: phase 11's smoothed aggregation at SPMD_SA_N^3 on 8 shards:
+    setup_mode="distributed" (the JAX package's distributed level sizes),
+    then spmd_sa_setup, equal to it level by level, into from_spmd;
+    float32 Chebyshev(2) refined to 1e-8 with b = A 1 in at most the JAX
+    package's refinements + 1."""
+    from raptor_tpu_torch.aggregation.solver import (
+        ParSmoothedAggregationSolver)
+    from raptor_tpu_torch.comm.spmd import spmd_sa_setup
+    from raptor_tpu_torch.comm.transport import InProcessTransport
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.gallery.stencils import (
+        laplace_stencil_27pt, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    n = SPMD_SA_N
+    H, L = TAP_LAYOUT
+    A = par_stencil_grid(laplace_stencil_27pt(), (n, n, n), H * L)
+    ml = ParSmoothedAggregationSolver(0.0, relax_type=RelaxType.Chebyshev)
+    ml.setup_mode = "distributed"
+    t0 = time.perf_counter()
+    ml.setup(A)
+    dist_s = time.perf_counter() - t0
+    levels = level_sizes(f"distributed SA {n}^3", ml, SPMD_SA_LEVELS)
+    print(ml.print_setup_times())
+    t0 = time.perf_counter()
+    hier = spmd_sa_setup(A, ml.weights, InProcessTransport, theta=0.0)
+    setup_s = time.perf_counter() - t0
+    worst = spmd_close(f"spmd_sa_setup {n}^3", ml, hier)
+    print(f"SA {n}^3 on {H * L} shards: setup_mode='distributed' levels "
+          f"{levels} in {dist_s:.3f} s; spmd_sa_setup {setup_s:.3f} s, "
+          f"levels within {worst:.3e}")
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy.from_spmd(hier, InProcessTransport,
+                                   relax_type=RelaxType.Chebyshev,
+                                   num_smooth_sweeps=2, dtype=torch.float32)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    print("\n".join(dh.format_summary()))
+    b = A.mult(np.ones(n ** 3))
+    key = f"spmd_sa{n}"
+    k, by_path[key], solve_s = drive_solve(
+        torch, dh, A, b, f"SPMD SA {n}^3", kernels,
+        limit=SPMD_SA_REFINEMENTS + 1)
+    cyc = compare_cycles(torch, {"spmd": dh}, b, kernels)
+    print_cycles(f"SPMD SA {n}^3", cyc)
+    return {"n": n, "levels": levels, "dist_setup_s": dist_s,
+            "setup_phase_totals": dict(ml.setup_times.times),
+            "setup_s": setup_s, "setup_rel_diff": worst, "pack_s": pack_s,
+            "formats": dh.format_summary(), "refinements": k,
+            "jax_refinements": SPMD_SA_REFINEMENTS,
+            "solve_s_first": solve_s, **cyc["spmd"]}
+
+
+def spmd_blocked(torch, kernels, by_path):
+    """15c: blocked AMG at SPMD_BSR elements on SPMD_BSR_SHARDS shards,
+    CLJP + modified classical, theta 0.25: setup_mode="distributed" (the
+    JAX package's distributed level sizes), its blocked float64 V-cycles
+    to 1e-6 and BSR-PCG iterations to 1e-10 (at most the JAX package's),
+    and spmd_bsr_setup on the block-aligned partition, equal to it level
+    by level."""
+    from raptor_tpu_torch import (
+        BSRDeviceHierarchy, ParBSRRugeStubenSolver, ParCSRMatrix, par_fem)
+    from raptor_tpu_torch.comm.spmd import spmd_bsr_setup
+    from raptor_tpu_torch.comm.transport import InProcessTransport
+    from raptor_tpu_torch.core.types import CoarsenType
+    from raptor_tpu_torch.device import par as dpar
+    from raptor_tpu_torch.krylov.cg import cg
+    from raptor_tpu_torch.multilevel.bsr_hierarchy import block_partition
+    nx, ny = SPMD_BSR
+    S = SPMD_BSR_SHARDS
+    A, _ = par_fem("elasticity", nx, ny, S)
+    ml = ParBSRRugeStubenSolver(2, strong_threshold=0.25,
+                                coarsen_type=CoarsenType.CLJP)
+    ml.setup_mode = "distributed"
+    t0 = time.perf_counter()
+    ml.setup(A)
+    dist_s = time.perf_counter() - t0
+    levels = level_sizes(f"distributed BSR {nx} x {ny}", ml, SPMD_BSR_LEVELS)
+    part = block_partition(A.global_num_rows, A.global_num_cols, 2, S)
+    t0 = time.perf_counter()
+    hier = spmd_bsr_setup(ParCSRMatrix(A.global_csr, part), 2, ml.weights,
+                          InProcessTransport)
+    setup_s = time.perf_counter() - t0
+    worst = spmd_close(f"spmd_bsr_setup {nx} x {ny}", ml, hier)
+    print(f"blocked {nx} x {ny} on {S} shards: setup_mode='distributed' "
+          f"levels {levels} in {dist_s:.3f} s; spmd_bsr_setup "
+          f"{setup_s:.3f} s, levels within {worst:.3e}")
+    dh = BSRDeviceHierarchy(ml, sweeps=3)
+    # sharding changes the shapes, so phase 12's format picks do not hold
+    path = bsr_formats(dh, ml, None, None)
+    print("\n".join(dh.format_summary()))
+    n = A.global_num_rows
+    b = A.mult(np.ones(n))
+    kernels.reset_launches()
+    x, hist, k = dh.solve(dh.vector(np.zeros(n)), dh.vector(b), tol=1e-6,
+                          max_iter=100)
+    launches = by_path["dist_bsr_solve"] = dict(kernels.LAUNCHES)
+    xh = dh.host(x)
+    relres = float(np.linalg.norm(b - A.mult(xh)) / np.linalg.norm(b))
+    print(f"distributed blocked solve: {k} V-cycles to {hist[k]:.3e} (host "
+          f"{relres:.3e}); launches {launches}", flush=True)
+    if (hist[k] > 1e-6 or k > SPMD_BSR_CYCLES or relres > 2e-6
+            or not np.isfinite(xh).all()):
+        raise AssertionError(f"distributed BSR: no 1e-6 within "
+                             f"{SPMD_BSR_CYCLES}: {hist[:k + 1]}")
+    require_launches("distributed BSR solve", launches, path)
+    Ab = ml.levels[0].A
+    A64 = dpar.device_put_matrix(Ab, dtype=torch.float64,
+                                 lane_pad=dh.lane_pad, need_transpose=False)
+
+    def vec(v):
+        return dpar.device_put_vector(v, Ab.partition.row_bounds,
+                                      A64.rows_pad, dtype=torch.float64)
+
+    kernels.reset_launches()
+    r = cg(A64, vec(np.zeros(n)), vec(b), tol=1e-10, max_iter=200,
+           precond=dh.precond_pack())
+    by_path["dist_bsr_pcg"] = dict(kernels.LAUNCHES)
+    it = r.n_iters
+    print(f"distributed BSR-PCG: {it} iterations to {r.res[it]:.3e}",
+          flush=True)
+    if not r.res[it] <= 1e-10 or it > SPMD_BSR_PCG or r.indefinite:
+        raise AssertionError(f"distributed BSR-PCG: no 1e-10 within "
+                             f"{SPMD_BSR_PCG}: {r.res[:it + 1]}")
+    require_launches("distributed BSR-PCG", by_path["dist_bsr_pcg"],
+                     sorted(set(path) | {"dia_spmv"}))
+    cyc = bsr_cycle_report(torch, dh, b, kernels)
+    return {"nx": nx, "ny": ny, "shards": S, "levels": levels,
+            "dist_setup_s": dist_s, "spmd_setup_s": setup_s,
+            "setup_rel_diff": worst, "formats": dh.format_summary(),
+            "cycles": k, "jax_cycles": SPMD_BSR_CYCLES, "res": float(hist[k]),
+            "pcg_iters": it, "jax_pcg_iters": SPMD_BSR_PCG, **cyc}
+
+
+def spmd_reference_check(torch, n=SPMD_CPU_N):
+    """15d: one float64 V-cycle of a from_spmd hierarchy of the n^2
+    flagship on TAP_LAYOUT's 8 shards, on the card and with the plain
+    versions on the CPU (lane_pad 128 on both): equal to CARD_CPU_TOL of
+    max |x|."""
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.comm.transport import InProcessTransport
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+    H, L = TAP_LAYOUT
+    A = par_stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n),
+                         H * L)
+    hier = spmd_rs_setup(A, form_rand_weights(n * n, 0), InProcessTransport)
+    b = A.mult(np.ones(n * n))
+    out = []
+    for dev in ("cuda", "cpu"):
+        dh = DeviceHierarchy.from_spmd(
+            hier, InProcessTransport, relax_type=RelaxType.Chebyshev,
+            num_smooth_sweeps=3, lane_pad=128, device=dev)
+        out.append(dh.host(dh.vcycle(dh.vector(np.zeros_like(b)),
+                                     dh.vector(b))))
+    err = float(np.abs(out[0] - out[1]).max() / np.abs(out[1]).max())
+    print(f"reference: {n}^2 from_spmd, one float64 V-cycle, card against "
+          f"CPU {err:.3e} of max |x|")
+    if not err <= CARD_CPU_TOL:
+        raise AssertionError(f"from_spmd V-cycle: card and CPU differ by "
+                             f"{err}")
     return err
 
 
@@ -2137,11 +2477,25 @@ def main(argv=None):
 
     # 14. the topology-aware exchange and the distributed setup
     t0 = time.perf_counter()
-    summary_tap = {"example": tap_example(torch, kernels, by_path),
-                   "distributed": dist_flagship(torch, n // 2, kernels,
-                                                by_path),
+    example = tap_example(torch, kernels, by_path)
+    dist, A14, ml14 = dist_flagship(torch, n // 2, kernels, by_path)
+    summary_tap = {"example": example, "distributed": dist,
                    "card_cpu_rel_err": tap_reference_check(torch)}
     phase("TAP and the distributed setup", t0)
+
+    # 15. the SPMD bridge on 14b's problem, the distributed SA and blocked
+    # setups, and the bridge's cycle on the card against the CPU
+    t0 = time.perf_counter()
+    summary_spmd = {"bridge": spmd_bridge(torch, ml14, A14, dist, kernels,
+                                          by_path)}
+    del ml14, A14
+    torch.cuda.empty_cache()
+    summary_spmd["sa"] = spmd_sa(torch, kernels, by_path)
+    summary_spmd["bsr"] = spmd_blocked(torch, kernels, by_path)
+    summary_spmd["card_cpu_rel_err"] = spmd_reference_check(torch)
+    summary_spmd["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase15": summary_spmd}))
+    phase("distributed SA and blocked setups, the SPMD bridge", t0)
 
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
@@ -2175,7 +2529,14 @@ def main(argv=None):
                 "2d_tap": summary_tap["example"]["cycles"]["tap0"][
                     "launches_per_vcycle"][name],
                 "2d_dist_tap": summary_tap["distributed"]["tap0"][
-                    "launches_per_vcycle"][name]},
+                    "launches_per_vcycle"][name],
+                "2d_spmd": summary_spmd["bridge"]["plain"][
+                    "launches_per_vcycle"][name],
+                "2d_spmd_tap": summary_spmd["bridge"]["tap0"][
+                    "launches_per_vcycle"][name],
+                "3d_sa_spmd": summary_spmd["sa"]["launches_per_vcycle"][name],
+                "2d_bsr_dist": summary_spmd["bsr"]["launches_per_vcycle"][
+                    name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -2198,7 +2559,7 @@ def main(argv=None):
     print(json.dumps({"2d": summary2, "3d": summary3,
                       "2d_sor_krylov": summaryk, "sa": summary_sa,
                       "bsr": summary_bsr, "setup_on_card": summary_card,
-                      "tap": summary_tap,
+                      "tap": summary_tap, "spmd": summary_spmd,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

@@ -18,7 +18,16 @@ bit-identical hierarchies.
   interpolation), all with native Galerkin products, a dense coarse LU
   and setup phase timers (``setup_times``, ``print_setup_times``). The
   gallery has the stencil problems and the Q1 finite-element Laplacian
-  and plane-stress elasticity (``gallery.fem.par_fem``).
+  and plane-stress elasticity (``gallery.fem.par_fem``). Every solver
+  runs ``setup_mode = "distributed"`` too: the per-shard stages of
+  ``ruge_stuben.par_setup`` over ``comm.transport``'s in-process
+  transport.
+- **SPMD bridge**: ``comm.spmd`` builds the whole RS, SA or blocked
+  hierarchy rank-locally from a local-view ``ParCSRMatrix``
+  (``spmd_rs_setup``, ``spmd_sa_setup``, ``spmd_bsr_setup``), and
+  ``DeviceHierarchy.from_spmd`` packs it for the device solve through the
+  transport (``vector_local`` places per-rank vectors). One card holds
+  every shard; several controllers are ROADMAP Queue 1 item 17.
 - **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
   packs every level into stacked-shard ``[S, ...]`` tensors
   (``device.par.device_put_matrix``) and runs V-cycles with any smoother
@@ -38,6 +47,8 @@ when CUDA is asked for and absent.
 """
 
 from raptor_tpu_torch.aggregation.solver import ParSmoothedAggregationSolver
+from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import (
     AggType, CoarsenType, InterpType, ProlongType, RelaxType, StrengthType)
 from raptor_tpu_torch.gallery.fem import par_fem
@@ -46,7 +57,7 @@ from raptor_tpu_torch.multilevel.bsr_hierarchy import (
 from raptor_tpu_torch.multilevel.par_multilevel import ParRugeStubenSolver
 
 __all__ = ["AggType", "BSRDeviceHierarchy", "CoarsenType", "InterpType",
-           "ParBSRRugeStubenSolver", "ParRugeStubenSolver",
-           "ParSmoothedAggregationSolver", "ProlongType", "RelaxType",
-           "StrengthType", "par_fem"]
+           "ParBSRRugeStubenSolver", "ParCSRMatrix", "ParRugeStubenSolver",
+           "ParSmoothedAggregationSolver", "Partition", "ProlongType",
+           "RelaxType", "StrengthType", "par_fem"]
 __version__ = "0.1.0"

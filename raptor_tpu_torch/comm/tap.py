@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from raptor_tpu_torch.comm.transport import check_all_local
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device.formats import _scatter_add, _take
 
@@ -287,15 +288,18 @@ class DeviceTAP:
 
 
 def device_put_tap(plan: TAPPlanHost, dtype: torch.dtype,
-                   device: torch.device, tr=None) -> DeviceTAP:
+                   device: torch.device, tr=None, first_shard: int = 0,
+                   n_local: int = None) -> DeviceTAP:
     """The stacked plan on ``device``, which the caller has resolved (as
-    ``device.par.resolve_device`` does for a hierarchy). A transport
-    (``tr``, several controllers each uploading its own shards) is ROADMAP
-    Queue 1 item 13's and raises."""
+    ``device.par.resolve_device`` does for a hierarchy). With a transport
+    (``tr``) every controller holds the same global plan (built from the
+    allgathered column maps) and uploads the slices of its shards
+    ``[first_shard, first_shard + n_local)``; the card holds the whole
+    stack, so they must be every shard (``check_all_local``)."""
     if tr is not None:
-        raise NotImplementedError(
-            "device_put_tap over a transport (one controller per shard "
-            "group) waits for ROADMAP Queue 1 item 13 (the SPMD bridge)")
+        S = plan.H * plan.L
+        check_all_local(S if n_local is None else n_local, S, first_shard,
+                        "device_put_tap")
 
     def conv(x):
         x = np.asarray(x)

@@ -29,6 +29,13 @@ layout, and the smallest wins (``_transfer_bytes``). The JAX package ranks
 them by nanosecond constants fitted on a TPU, which the port does not
 carry. A forced format is never re-ranked. Every on-block SpMV but ELL's
 goes through a hand-written CUDA kernel (``device.kernels``).
+
+Given a transport (``tr``), the packer takes its pads, widths and format
+statistics from the transport's allgathers and its halo plan from the
+rank-local handshake (``comm.plan.build_comm_plan_spmd``), as the JAX
+package's SPMD path does; the view must hold every shard
+(``comm.transport.check_all_local``), which gives the same stacked
+tensors as ``tr=None``.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from raptor_tpu_torch.comm.plan import CommPlan, build_comm_plan
+from raptor_tpu_torch.comm.plan import (
+    CommPlan, build_comm_plan, build_comm_plan_spmd)
 from raptor_tpu_torch.comm.tap import tap_halo_exchange, tap_halo_exchange_T
+from raptor_tpu_torch.comm.transport import check_all_local
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device import kernels
@@ -304,12 +313,18 @@ def bdia_tile_share(M: DeviceParCSR) -> float:
         1, S * P * (M.bd_tptr.shape[1] - 1))
 
 
+def _gall(tr, obj):
+    """``obj`` of every rank (``[obj]`` without a transport); every rank
+    runs the same reduction on the list, so all agree on the statistic."""
+    return [obj] if tr is None else tr.allgather_obj(obj)
+
+
 def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
                       lane_pad: int = 1,
                       force_format: Optional[str] = None,
                       embed: Optional[str] = None,
                       need_transpose: bool = True,
-                      device="cuda") -> DeviceParCSR:
+                      device="cuda", tr=None) -> DeviceParCSR:
     """Pack a host ParCSRMatrix into the stacked-shard device plan.
 
     ``embed`` ("cols" for P, "rows" for P^T) moves a transfer operator's
@@ -319,7 +334,9 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     skips the choice: "well" and "wellt" pack the block without the
     embedding, a forced "bell" packs it with the embedding. ``lane_pad``
     rounds the padded row/col/halo sizes (128 on CUDA, as the TPU does,
-    makes the TPU's DIA/BDIA picks)."""
+    makes the TPU's DIA/BDIA picks). ``tr`` (a ``comm.Transport``): ``a``
+    may be a local view, and every statistic is agreed through the
+    transport (module docstring)."""
     if force_format not in (None,) + FORMATS:
         raise ValueError(f"force_format={force_format!r}; the port packs "
                          f"{FORMATS} or chooses itself (None)")
@@ -327,16 +344,26 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     part = a.partition
     S = part.n_shards
     shards = a.shards()
-    plan: CommPlan = build_comm_plan(a, lane_pad=lane_pad)
+    if tr is None:
+        plan: CommPlan = build_comm_plan(a, lane_pad=lane_pad)
+    else:
+        check_all_local(len(shards), S, a.first_shard, "device_put_matrix")
+        plan = build_comm_plan_spmd(a, tr, lane_pad=lane_pad)
     npdt = _np_dtype(dtype)
     itemsize = npdt.itemsize
 
+    def gmax(x):
+        return max(_gall(tr, x))
+
+    def gcat(xs):
+        return [x for rank in _gall(tr, xs) for x in rank]
+
     R = _round_up(max(1, part.max_local_rows), lane_pad)
     C = _round_up(max(1, part.max_local_cols), lane_pad)
-    W_off = _max_row_nnz([s.off_proc for s in shards])
+    W_off = gmax(_max_row_nnz([s.off_proc for s in shards]))
     # boundary row count (rows with >= 1 off_proc entry), uniform pad
-    B = max(int(np.count_nonzero(np.diff(s.off_proc.indptr)))
-            for s in shards)
+    B = gmax(max(int(np.count_nonzero(np.diff(s.off_proc.indptr)))
+                 for s in shards))
     B = _round_up(B, lane_pad) if B else 0
 
     embed_kind = "none"
@@ -383,15 +410,16 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     fmt = force_format
     bd_spec = []
     if fmt is None:
-        shard_offs = [dia_detect(blk, MAX_DIA_OFFSETS) for blk in fmt_blocks]
+        shard_offs = gcat([dia_detect(blk, MAX_DIA_OFFSETS)
+                           for blk in fmt_blocks])
         union = (np.unique(np.concatenate(shard_offs))
                  if all(o is not None for o in shard_offs) else None)
         if union is not None and len(union) <= MAX_DIA_OFFSETS:
             fmt = "dia"
         else:
             merged = {}
-            for blk in fmt_blocks:
-                planes, counts = bdia_plane_counts(blk)
+            for planes, counts in gcat([bdia_plane_counts(blk)
+                                        for blk in fmt_blocks]):
                 for p, c in zip(planes, counts):
                     merged[p] = merged.get(p, 0) + int(c)
             A128 = -(-fmt_R // 128)
@@ -417,7 +445,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     wl_ba, wl_wr, wl_T = WELL_BA, 0, 1
     sw_Kp = bl_Wb = wW = 0
     if force_format == "bell":
-        bl_Wb = max(bell_stats(blk)[0] for blk in fmt_blocks)
+        bl_Wb = gmax(max(bell_stats(blk)[0] for blk in fmt_blocks))
     elif force_format in ("well", "wellt") or (force_format is None
                                                and fmt == "ell"):
         auto = force_format is None
@@ -425,9 +453,10 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         if auto:
             cand["ell"] = _transfer_bytes(
                 "ell", itemsize,
-                max(1, _max_row_nnz([s.on_proc for s in shards])), R)
+                max(1, gmax(_max_row_nnz([s.on_proc for s in shards]))), R)
         if force_format == "well" or (auto and R >= TRANSFER_MIN):
-            stats = [wind_ell_stats(blk.on_proc, R, wl_ba) for blk in shards]
+            stats = gcat([wind_ell_stats(blk.on_proc, R, wl_ba)
+                          for blk in shards])
             wW = max(st[0] for st in stats)
             wWR = max(st[1] for st in stats)
             T_w = _round_up(R, wl_ba * LANE) // (wl_ba * LANE)
@@ -437,15 +466,15 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         if force_format == "wellt" or (
                 auto and part.global_num_rows < part.global_num_cols
                 and C >= TRANSFER_MIN):
-            statsT = [swellt_stats(blk.on_proc.transpose())
-                      for blk in shards]
+            statsT = gcat([swellt_stats(blk.on_proc.transpose())
+                           for blk in shards])
             sw_T = max(t for t, _ in statsT)
             sw_Kp = max(k for _, k in statsT)
             if sw_Kp > 0 or not auto:
                 cand["wellt"] = _transfer_bytes("wellt", itemsize, sw_T,
                                                 sw_Kp)
         if auto and part.global_num_rows > part.global_num_cols:
-            W_b = max(bell_stats(blk)[0] for blk in fmt_blocks)
+            W_b = gmax(max(bell_stats(blk)[0] for blk in fmt_blocks))
             if W_b > 0 and A128 > 2:
                 cand["bell"] = _transfer_bytes("bell", itemsize, W_b, A128)
         fmt = min(cand, key=lambda f: (cand[f], f))
@@ -490,9 +519,9 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         bd_idx = np.zeros((S, Pn, A_pad, 128), dtype=np.int8)
         bd_vals = np.zeros((S, Pn, A_pad, 128), dtype=npdt)
         rest_shards = [bdia_split_rest(blk, bd_spec) for blk in fmt_blocks]
-        Wr = _max_row_nnz(rest_shards)
-        Br = max(int(np.count_nonzero(np.diff(r.indptr)))
-                 for r in rest_shards)
+        Wr = gmax(_max_row_nnz(rest_shards))
+        Br = gmax(max(int(np.count_nonzero(np.diff(r.indptr)))
+                      for r in rest_shards))
         Br = _round_up(Br, lane_pad) if Br else 0
     else:
         bd_idx = np.zeros((S, 0, 1, 128), dtype=np.int8)
@@ -512,7 +541,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         dia_pad = max(1, int(np.abs(union).max()))
         # embedded DIA is forward-only: the ELL copy of the ORIGINAL block
         # serves the transpose path
-        W_on = (max(1, _max_row_nnz([s.on_proc for s in shards]))
+        W_on = (max(1, gmax(_max_row_nnz([s.on_proc for s in shards])))
                 if embed_kind != "none" else 1)
         on_shape = (S, W_on, R)
         dia_vals = np.zeros((S, len(union), fmt_R), dtype=npdt)
@@ -531,7 +560,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         if fmt in ("bdia", "bell") and not need_transpose:
             W_on = 1   # the ELL copy only serves spmv_T
         else:
-            W_on = max(1, _max_row_nnz([s.on_proc for s in shards]))
+            W_on = max(1, gmax(_max_row_nnz([s.on_proc for s in shards])))
         on_shape = (S, W_on, R)
         dia_vals = np.zeros((S, 1, fmt_R), dtype=npdt)
     on_cols = np.zeros(on_shape, dtype=np.int32)
@@ -647,6 +676,46 @@ def device_put_vector(x: np.ndarray, bounds: np.ndarray, pad: int,
     for s in range(S):
         out[s, :int(bounds[s + 1] - bounds[s])] = x[bounds[s]:bounds[s + 1]]
     return torch.from_numpy(out).to(resolve_device(device), dtype)
+
+
+def put_stacked(staged: dict, n_shards: int, device, dtype=None,
+                first_shard: int = 0) -> dict:
+    """Upload a dict of [S_local, ...] host arrays whose leading axis is
+    the shards ``first_shard`` onward (the JAX package's placement of each
+    shard on its device): float arrays in ``dtype``, integer ones as
+    int64. The card holds the whole stack, so the arrays must cover every
+    shard (``check_all_local``)."""
+    dev = resolve_device(device)
+    out = {}
+    for k, arr in staged.items():
+        arr = np.ascontiguousarray(arr)
+        check_all_local(arr.shape[0], n_shards, first_shard, k)
+        t = torch.from_numpy(arr)
+        out[k] = t.to(dev, torch.int64 if arr.dtype.kind in "iu" else dtype)
+    return out
+
+
+def put_replicated(x: np.ndarray, device, dtype=None) -> torch.Tensor:
+    """A value every shard reads whole (the redundant coarse LU factors,
+    par_multilevel.hpp:223-333): one copy on the card."""
+    return torch.from_numpy(np.ascontiguousarray(x)).to(
+        resolve_device(device), dtype)
+
+
+def device_put_vector_local(x_locals, bounds: np.ndarray, pad: int,
+                            dtype=torch.float64, device="cuda",
+                            first_shard: int = 0) -> torch.Tensor:
+    """Per-rank vector placement: ``x_locals`` holds one slice a LOCAL
+    shard, from ``first_shard`` on; they must cover every shard."""
+    out = np.zeros((len(x_locals), pad), dtype=np.float64)
+    for i, xl in enumerate(x_locals):
+        s = first_shard + i
+        n = int(bounds[s + 1] - bounds[s])
+        if len(xl) != n:
+            raise ValueError(f"shard {s}: {len(xl)} values for {n} rows")
+        out[i, :n] = xl
+    return put_stacked({"v": out}, len(bounds) - 1, device, dtype,
+                       first_shard)["v"]
 
 
 def host_vector(x: torch.Tensor, bounds: np.ndarray) -> np.ndarray:

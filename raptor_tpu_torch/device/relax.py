@@ -38,11 +38,12 @@ import scipy.sparse as sp
 import torch
 
 from raptor_tpu_torch import native
+from raptor_tpu_torch.comm.transport import check_all_local
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.types import ZERO_TOL
 from raptor_tpu_torch.device.formats import ell_arrays, ell_spmv, off_spmv
-from raptor_tpu_torch.device.par import DeviceParCSR, halo, on_spmv
+from raptor_tpu_torch.device.par import DeviceParCSR, _gall, halo, on_spmv
 
 
 def _split_ldu(a: CSRMatrix) -> Tuple[np.ndarray, CSRMatrix, CSRMatrix]:
@@ -163,9 +164,11 @@ class DeviceRelax:
     color_ok: torch.Tensor   # [NC, S, R] bool: color_mask * has_diag > 0
 
 
-def _cheb_interval(a: ParCSRMatrix):
-    """Power-iteration estimate of lambda_max of D^{-1} A, shard by shard;
-    the interval is [0.3, 1.1] * lambda_max, per hypre practice."""
+def _cheb_interval(a: ParCSRMatrix, tr=None):
+    """Power-iteration estimate of lambda_max of D^{-1} A, shard by shard
+    over a replicated iterate; the interval is [0.3, 1.1] * lambda_max,
+    per hypre practice. With a transport (``tr``) the per-shard slices are
+    concatenated through it, with the same arithmetic."""
     part = a.partition
     shards = a.shards()
     rng_v = np.random.default_rng(42).random(part.global_num_rows) + 0.1
@@ -177,13 +180,15 @@ def _cheb_interval(a: ParCSRMatrix):
     lmax = 1.0
     for _ in range(12):
         locs = []
-        for s, blk in enumerate(shards):
+        for i, blk in enumerate(shards):
+            s = a.first_shard + i
             c0, c1 = int(part.col_bounds[s]), int(part.col_bounds[s + 1])
             w = blk.on_proc.mult(v[c0:c1])
             if blk.off_proc.nnz:
                 w = w + blk.off_proc.mult(v[blk.off_proc_column_map])
-            locs.append(w / invd[s])
-        w_full = np.concatenate(locs)
+            locs.append(w / invd[i])
+        w_full = (np.concatenate(locs) if tr is None
+                  else tr.allgather_concat(locs))
         nw = np.linalg.norm(w_full)
         if nw <= 0:
             break
@@ -192,15 +197,20 @@ def _cheb_interval(a: ParCSRMatrix):
 
 
 def build_relax(a: ParCSRMatrix, dA: DeviceParCSR,
-                need=("tri", "color")) -> DeviceRelax:
+                need=("tri", "color"), tr=None) -> DeviceRelax:
     """Host construction of the relaxation plan, in ``dA``'s dtype and on
     its device.
 
     ``need`` selects the heavy plans: "tri" builds the level-scheduled
     triangular sweeps and L/U ELL blocks (SOR/SSOR/Jacobi row sums),
     "color" the greedy colouring masks (multicolour GS). Chebyshev and
-    l1-Jacobi need neither, which saves O(nnz)-scale arrays per level."""
+    l1-Jacobi need neither, which saves O(nnz)-scale arrays per level.
+    ``tr``: ``a`` may be a local view of every shard, and the pads are
+    agreed through the transport, as ``device_put_matrix`` does."""
     shards = a.shards()
+    if tr is not None:
+        check_all_local(len(shards), a.n_shards, a.first_shard,
+                        "build_relax")
     S = len(shards)
     R = dA.rows_pad
     need_tri = "tri" in need
@@ -222,15 +232,17 @@ def build_relax(a: ParCSRMatrix, dA: DeviceParCSR,
         per_shard.append((diag, low, up, fl, bl))
         colorings.append(_greedy_coloring(blk.on_proc) if need_color
                          else np.zeros(1, dtype=np.int64))
-    NC = max(1, max(int(c.max()) + 1 if len(c) else 1 for c in colorings))
-    NLf = max(len(p[3]) for p in per_shard)
-    NLb = max(len(p[4]) for p in per_shard)
-    Mf = max(max((len(lv) for lv in p[3]), default=1) for p in per_shard)
-    Mb = max(max((len(lv) for lv in p[4]), default=1) for p in per_shard)
-    Wl = max(1, max((int(np.diff(p[1].indptr).max()) if p[1].nnz else 0)
-                    for p in per_shard))
-    Wu = max(1, max((int(np.diff(p[2].indptr).max()) if p[2].nnz else 0)
-                    for p in per_shard))
+    dims = (
+        max(1, max(int(c.max()) + 1 if len(c) else 1 for c in colorings)),
+        max(len(p[3]) for p in per_shard),
+        max(len(p[4]) for p in per_shard),
+        max(max((len(lv) for lv in p[3]), default=1) for p in per_shard),
+        max(max((len(lv) for lv in p[4]), default=1) for p in per_shard),
+        max(1, max((int(np.diff(p[1].indptr).max()) if p[1].nnz else 0)
+                   for p in per_shard)),
+        max(1, max((int(np.diff(p[2].indptr).max()) if p[2].nnz else 0)
+                   for p in per_shard)))
+    NC, NLf, NLb, Mf, Mb, Wl, Wu = (max(d) for d in zip(*_gall(tr, dims)))
 
     diag_a = np.ones((S, R))
     has = np.zeros((S, R))
@@ -275,7 +287,7 @@ def build_relax(a: ParCSRMatrix, dA: DeviceParCSR,
         row_l1 = d + (onab - np.abs(d)) + offab
         l1[s, :n] = np.where(np.abs(row_l1) > ZERO_TOL, row_l1, 1.0)
 
-    cheb_lo, cheb_hi = _cheb_interval(a)
+    cheb_lo, cheb_hi = _cheb_interval(a, tr)
 
     def put(x):
         return torch.from_numpy(x).to(dA.device, dA.dtype)

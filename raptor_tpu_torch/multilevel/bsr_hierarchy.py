@@ -1,5 +1,5 @@
 """Blocked (BSR) AMG: nodal hierarchy and block-ELL device solve (copy of
-raptor_tpu.multilevel.bsr_hierarchy, global setup mode).
+raptor_tpu.multilevel.bsr_hierarchy).
 
 The reference's ParBSR path (core/par_matrix.hpp:613-699, CSR->BSR
 redistribution par_matrix.cpp:872-997, blocked SpMV spmv.cpp:128) treats
@@ -8,7 +8,10 @@ AMG analog is NODAL coarsening: condense each b x b block to its Frobenius
 norm, make the nodal graph an M-matrix, run the scalar classical pipeline
 (strength -> CF split -> interpolation) on it, and interpolate each
 component through its own nodal prolongator on the common coarse grid, so
-every level's operator keeps exact b x b block structure.
+every level's operator keeps exact b x b block structure. With
+``setup_mode = "distributed"`` each level extends through the per-shard
+stages over a transport (``bsr_extend_distributed``, which
+``comm.spmd.spmd_bsr_setup`` runs too).
 
 Device side: each level's operator is a block-ELL ``DeviceParBSR``
 (``device.bsr``), smoothing is block Chebyshev (or damped block Jacobi),
@@ -32,8 +35,9 @@ import torch.nn.functional as F
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.partition import Partition
-from raptor_tpu_torch.core.types import (CoarsenType, InterpType, RelaxType,
-                                         StrengthType)
+from raptor_tpu_torch.comm.transport import InProcessTransport
+from raptor_tpu_torch.core.types import (CFState, CoarsenType, InterpType,
+                                         RelaxType, StrengthType)
 from raptor_tpu_torch.device import par as dpar
 from raptor_tpu_torch.device.bsr import DeviceParBSR, bsr_spmv, device_put_bsr
 from raptor_tpu_torch.device.par import (
@@ -44,6 +48,7 @@ from raptor_tpu_torch.multilevel.par_multilevel import (
     ParMultilevel, ParRugeStubenSolver, check_setup_mode)
 from raptor_tpu_torch.profiling.timers import Profiler
 from raptor_tpu_torch.ruge_stuben import cf_splitting as cf
+from raptor_tpu_torch.ruge_stuben import par_setup as ps
 from raptor_tpu_torch.ruge_stuben.interpolation import (
     direct_interpolation, mod_classical_interpolation)
 from raptor_tpu_torch.ruge_stuben.strength import strength
@@ -86,6 +91,133 @@ def block_partition(n_scalar: int, m_scalar: int, b: int,
                      np.asarray(bpart.col_bounds) * b)
 
 
+def component_block(g_s: CSRMatrix, b: int, c: int) -> CSRMatrix:
+    """Per-shard component coupling submatrix A_c = A[c::b, c::b]
+    restricted to this shard's rows: local node rows, GLOBAL node cols.
+    The shard's first scalar row is block-aligned, so local scalar row i
+    belongs to component (i % b)."""
+    m = g_s.to_scipy()
+    keep = m[c::b, :].tocoo()
+    sel = (keep.col % b) == c
+    out = sp.csr_matrix(
+        (keep.data[sel], (keep.row[sel], keep.col[sel] // b)),
+        shape=(keep.shape[0], g_s.n_cols // b))
+    out.sum_duplicates()
+    out.sort_indices()
+    return CSRMatrix.from_scipy(out)
+
+
+def bsr_extend_distributed(a: ParCSRMatrix, b: int, weights: np.ndarray,
+                           coarsen: CoarsenType, interp: InterpType,
+                           theta: float, make_transport,
+                           strength_type=None,
+                           timers: Optional[Profiler] = None):
+    """One blocked-AMG level extension over the transport: nodal
+    condensation, strength, CF split, per-component interpolation and the
+    Galerkin product all run on per-shard blocks and collectives, with no
+    global matrix (the distributed twin of
+    ``ParBSRRugeStubenSolver.extend_hierarchy``, under the same phase
+    names in ``timers``). Classical or symmetric nodal strength; CLJP,
+    PMIS, HMIS or (for RS and Falgout) the Falgout hybrid; modified
+    classical interpolation only, as the JAX package's.
+
+    Returns (scalar P row blocks per LOCAL shard, [b] lists of the nodal
+    component P row blocks per LOCAL shard, states, scalar coarse row
+    blocks per LOCAL shard, scalar coarse partition)."""
+    if interp != InterpType.ModClassical:
+        raise NotImplementedError(
+            f"the distributed blocked setup runs modified classical "
+            f"interpolation only, as the JAX package's, not {interp}")
+    if strength_type not in (None, StrengthType.Classical,
+                             StrengthType.Symmetric):
+        raise NotImplementedError(
+            f"distributed blocked setup: strength_type {strength_type}")
+    timers = timers or Profiler()
+    part = a.partition
+    S = part.n_shards
+    fs = a.first_shard
+    shards = a.shards()
+    n_nodes = part.global_num_rows // b
+    ncols = part.global_num_cols
+    part_nodes = Partition(n_nodes, n_nodes, S,
+                           np.asarray(part.row_bounds) // b,
+                           np.asarray(part.col_bounds) // b)
+
+    g_blocks = [blk.global_cols_csr(ncols) for blk in shards]
+    with timers.phase("strength"):
+        # per-shard nodal condensation: scalar rows (global cols) -> nodal
+        # rows with global nodal cols
+        nod_blocks = [nodal_matrix(g, b, int(part.row_bounds[fs + i]) // b)
+                      for i, g in enumerate(g_blocks)]
+        nod_par = ParCSRMatrix.from_local_rows(nod_blocks, part_nodes,
+                                               first_shard=fs)
+        tr_n = make_transport(nod_par)
+        if strength_type == StrengthType.Symmetric:
+            masks = ps.dist_symmetric_strength(nod_par, theta, tr=tr_n)
+        else:
+            masks = ps.dist_classical_strength(nod_par, theta, tr=tr_n)
+        s_n = ps.strength_masks_to_par(nod_par, masks)
+    w = weights[:n_nodes]
+    with timers.phase("cf_splitting"):
+        tr_s = make_transport(s_n)
+        if coarsen == CoarsenType.CLJP:
+            states = ps.dist_split_cljp(s_n, w, tr=tr_s)
+        elif coarsen == CoarsenType.PMIS:
+            states = ps.dist_split_pmis(s_n, w, tr=tr_s)
+        elif coarsen == CoarsenType.HMIS:
+            states = ps.dist_split_hmis(s_n, w, tr=tr_s)
+        else:
+            states = ps.dist_split_falgout(s_n, w, tr=tr_s)
+        states = np.asarray(states)
+
+    with timers.phase("interpolation"):
+        # nodal strength patterns per local shard (to mask the components)
+        s_pats = []
+        for blk in s_n.shards():
+            g = blk.global_cols_csr(n_nodes).to_scipy()
+            g.data = np.ones_like(g.data)
+            s_pats.append(g)
+        p_comp_blocks = []
+        n_coarse = None
+        for c in range(b):
+            comp = [component_block(g, b, c) for g in g_blocks]
+            sc = [CSRMatrix.from_scipy(
+                comp[i].to_scipy().multiply(s_pats[i]).tocsr())
+                for i in range(len(comp))]
+            a_c = ParCSRMatrix.from_local_rows(comp, part_nodes,
+                                               first_shard=fs)
+            s_c = ParCSRMatrix.from_local_rows(sc, part_nodes,
+                                               first_shard=fs)
+            pc_blocks, n_coarse = ps.dist_mod_classical_interpolation(
+                a_c, s_c, states, tr=make_transport(a_c), assemble=False)
+            p_comp_blocks.append(pc_blocks)
+
+        # block-diagonal scalar P rows per local shard
+        p_blocks = []
+        for i in range(len(shards)):
+            rows, cols, vals = [], [], []
+            for c in range(b):
+                coo = p_comp_blocks[c][i].to_scipy().tocoo()
+                rows.append(coo.row.astype(np.int64) * b + c)
+                cols.append(coo.col.astype(np.int64) * b + c)
+                vals.append(coo.data)
+            pm = sp.csr_matrix(
+                (np.concatenate(vals),
+                 (np.concatenate(rows), np.concatenate(cols))),
+                shape=(shards[i].local_num_rows, n_coarse * b))
+            pm.sort_indices()
+            p_blocks.append(CSRMatrix.from_scipy(pm))
+
+    # coarse partition: nodal coarse bounds (C-nodes per shard) * b
+    csum = np.concatenate([[0], np.cumsum(states == CFState.Selected)])
+    cb = csum[np.asarray(part_nodes.row_bounds)].astype(np.int64) * b
+    part_c = Partition(n_coarse * b, n_coarse * b, S, cb, cb)
+    with timers.phase("RAP"):
+        c_blocks = ps.dist_rap(a, p_blocks, tr=make_transport(a),
+                               coarse_bounds=cb, assemble=False)
+    return p_blocks, p_comp_blocks, states, c_blocks, part_c
+
+
 def nodal_transfers(ml: "ParBSRRugeStubenSolver",
                     level: int) -> List[ParCSRMatrix]:
     """The nodal component prolongators P_c of ``level``, partitioned by
@@ -104,8 +236,8 @@ class ParBSRRugeStubenSolver(ParMultilevel):
     """Blocked classical AMG: nodal coarsening on the block-norm graph,
     per-component interpolation, scalar-native Galerkin RAP (the result
     stays block-structured because P is block-diagonal). ``max_coarse``
-    counts nodes. Only the global setup mode is ported:
-    ``setup_mode = "distributed"`` raises (ROADMAP Queue 1 item 16b)."""
+    counts nodes. ``setup_mode`` "global" or "distributed"
+    (``_extend_hierarchy_distributed``)."""
 
     # RS is split_rs_entry on every level (no switch to Falgout)
     SPLITS = ParRugeStubenSolver.SPLITS
@@ -124,8 +256,7 @@ class ParBSRRugeStubenSolver(ParMultilevel):
         self.p_nodals: List[List[CSRMatrix]] = []
 
     def setup(self, af: ParCSRMatrix) -> None:
-        check_setup_mode(self.setup_mode, "the distributed blocked setup "
-                         "(ruge_stuben/par_setup.py, bsr_extend_distributed)")
+        check_setup_mode(self.setup_mode)
         b = self.block_size
         n = af.global_num_rows
         if n % b:
@@ -158,6 +289,8 @@ class ParBSRRugeStubenSolver(ParMultilevel):
         common nodal coarse grid: P's blocks are diagonal
         (diag(p_0[i,j], ..., p_{b-1}[i,j])), so every Galerkin product
         keeps exact b x b block structure."""
+        if self.setup_mode == "distributed":
+            return self._extend_hierarchy_distributed()
         b = self.block_size
         a = self.levels[-1].A
         n_nodes = a.global_num_rows // b
@@ -222,6 +355,35 @@ class ParBSRRugeStubenSolver(ParMultilevel):
             ap = a.multiply(pp)
             ac = pp.mult_T_mat(ap)
         self.levels.append(Level(A=ac))
+
+
+    def _extend_hierarchy_distributed(self) -> None:
+        """The blocked level extension through ``bsr_extend_distributed``
+        over the in-process transport. Every shard is local, so P and the
+        coarse operator are assembled for the device layer, and the coarse
+        level is re-partitioned evenly on block boundaries (the global
+        path's rule, which the blocked packer assumes)."""
+        b = self.block_size
+        a = self.levels[-1].A
+        p_blocks, p_comps, _, c_blocks, part_c = bsr_extend_distributed(
+            a, b, self.weights, self.coarsen_type, self.interp_type,
+            self.strong_threshold, InProcessTransport,
+            strength_type=self.strength_type, timers=self.setup_times)
+        part = a.partition
+        n_c = int(part_c.global_num_cols)
+        part_even = block_partition(n_c, n_c, b, part.n_shards)
+        part_p = Partition(part.global_num_rows, n_c, part.n_shards,
+                           part.row_bounds, part_even.col_bounds)
+
+        def stack(blocks):
+            g = sp.vstack([m.to_scipy() for m in blocks]).tocsr()
+            g.sort_indices()
+            return CSRMatrix.from_scipy(g)
+
+        self.levels[-1].P = ParCSRMatrix(stack(p_blocks), part_p)
+        self.p_nodals.append([stack(p_comps[c]) for c in range(b)])
+        self.levels.append(Level(A=ParCSRMatrix(stack(c_blocks),
+                                                part_even)))
 
 
 @dataclasses.dataclass
@@ -296,8 +458,9 @@ class BSRDeviceHierarchy:
         self.lu = torch.from_numpy(np.asarray(lu)).to(self.device, dtype)
         self.piv = torch.from_numpy(
             np.asarray(piv, dtype=np.int32) + 1).to(self.device)
+        part_c = ml.levels[-1].A.partition
         gather_idx, coarse_take = _coarse_plumbing(
-            ml.levels[-1].A.partition, self.levels[-1].Ab.brows_pad * b)
+            part_c, self.levels[-1].Ab.brows_pad * b, 0, part_c.n_shards)
         self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
         self.coarse_take = torch.from_numpy(coarse_take).to(self.device)
         self.row_bounds = ml.levels[0].A.partition.row_bounds

@@ -15,6 +15,11 @@ it off) every SpMV and smoother halo of the cycle goes through the
 topology-aware exchange (``comm.tap``) of a (host, local) shard layout
 (``device.par.make_mesh2``); the mixed-precision residual and the Krylov
 operators keep the plain exchange, as in the JAX package.
+
+``DeviceHierarchy.from_spmd`` builds the same device plan from a per-rank
+whole-hierarchy setup (``comm.spmd``): it packs each level's local view
+through the transport and forms P^T by the distributed transpose, with no
+global matrix, and then solves as the in-process route does.
 """
 
 from __future__ import annotations
@@ -26,13 +31,16 @@ import numpy as np
 import torch
 
 from raptor_tpu_torch.comm.tap import (
-    DeviceTAP, build_tap_plan, device_put_tap)
+    DeviceTAP, build_tap_plan, build_tap_plan_from_maps, device_put_tap)
+from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import RelaxType
 from raptor_tpu_torch.device import par as dpar
 from raptor_tpu_torch.device.par import (
     DeviceParCSR, bdia_tile_share, device_put_matrix, spmv)
 from raptor_tpu_torch.device.relax import RELAX_FNS, DeviceRelax, build_relax
 from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
+from raptor_tpu_torch.ruge_stuben import par_setup as ps
 
 RELAX_NAME = {RelaxType.Jacobi: "jacobi", RelaxType.SOR: "sor",
               RelaxType.SSOR: "ssor", RelaxType.MCSOR: "mc_sor",
@@ -65,18 +73,23 @@ class SolveResult:
     stalled: bool         # stopped by the stagnation guard, not the tolerance
 
 
-def _coarse_plumbing(part_c, Rc: int) -> Tuple[np.ndarray, np.ndarray]:
-    """``gather_idx`` maps global coarse row -> position in the gathered
-    padded [S*Rc] vector; ``coarse_take`` [S, Rc] holds each shard's
-    global row range."""
+def _coarse_plumbing(part_c, Rc: int, first_shard: int,
+                     SL: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Redundant-coarse index plumbing shared by the in-process and SPMD
+    constructions (they must stay bit-identical): ``gather_idx`` maps
+    global coarse row -> position in the gathered padded [S*Rc] vector;
+    ``coarse_take`` [SL, Rc] holds each LOCAL shard's global row range,
+    from ``first_shard`` on (in-process: 0 and every shard)."""
     n_c = part_c.global_num_rows
-    S = part_c.n_shards
     gather_idx = np.zeros(n_c, dtype=np.int64)
-    coarse_take = np.zeros((S, Rc), dtype=np.int64)
-    for s in range(S):
+    for s in range(part_c.n_shards):
         r0, r1 = int(part_c.row_bounds[s]), int(part_c.row_bounds[s + 1])
         gather_idx[r0:r1] = s * Rc + np.arange(r1 - r0)
-        coarse_take[s, :r1 - r0] = np.arange(r0, r1)
+    coarse_take = np.zeros((SL, Rc), dtype=np.int64)
+    for i in range(SL):
+        s = first_shard + i
+        r0, r1 = int(part_c.row_bounds[s]), int(part_c.row_bounds[s + 1])
+        coarse_take[i, :r1 - r0] = np.arange(r0, r1)
     return gather_idx, coarse_take
 
 
@@ -92,31 +105,10 @@ class DeviceHierarchy:
 
     def __init__(self, ml: ParMultilevel, dtype=torch.float64,
                  lane_pad: int = None, device="cuda", mesh=None):
-        self.device = dpar.resolve_device(device)
-        self.tap_amg = ml.tap_amg
-        if self.tap_amg >= 0 and not (
-                isinstance(mesh, dpar.Mesh2)
-                and mesh.n_shards == ml.levels[0].A.n_shards):
-            raise ValueError(
-                f"tap_amg = {self.tap_amg} needs mesh=make_mesh2(H, L) "
-                f"with H * L = {ml.levels[0].A.n_shards} shards, not "
-                f"{mesh!r}")
-        self.mesh = mesh
-        if lane_pad is None:
-            lane_pad = 128 if self.device.type == "cuda" else 1
-        self.lane_pad = lane_pad
-        self.dtype = dtype
-        self.relax_kind = RELAX_NAME[ml.relax_type]
-        self.num_smooth_sweeps = ml.num_smooth_sweeps
-        self.relax_weight = ml.relax_weight
-        self.solve_tol = ml.solve_tol
-        self.max_iterations = ml.max_iterations
-        # stagnation guard of ``solve``: stall_run consecutive cycles, each
-        # reducing the residual by less than a factor stall_ratio, stop it
-        # (typically at the f32 floor; solve_mixed goes below it);
-        # stall_run <= 0 turns the guard off
-        self.stall_ratio = 0.999
-        self.stall_run = 4
+        self._set_knobs(device, mesh, ml.levels[0].A.n_shards, ml.tap_amg,
+                        lane_pad, dtype, ml.relax_type, ml.num_smooth_sweeps,
+                        ml.relax_weight, ml.solve_tol, ml.max_iterations)
+        lane_pad = self.lane_pad
 
         put = dict(dtype=dtype, lane_pad=lane_pad, need_transpose=False,
                    device=self.device)
@@ -152,15 +144,136 @@ class DeviceHierarchy:
             np.asarray(piv, dtype=np.int32) + 1).to(self.device)
         part_c = ml.levels[-1].A.partition
         gather_idx, coarse_take = _coarse_plumbing(
-            part_c, self.levels[-1].A.rows_pad)
+            part_c, self.levels[-1].A.rows_pad, 0, part_c.n_shards)
         self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
         self.coarse_take = torch.from_numpy(coarse_take).to(self.device)
 
         self.row_bounds = ml.levels[0].A.partition.row_bounds
         self.rows_pad = self.levels[0].A.rows_pad
         self._fine_A = ml.levels[0].A
+        self._tr_factory = None
+
+    def _set_knobs(self, device, mesh, n_shards, tap_amg, lane_pad, dtype,
+                   relax_type, sweeps, weight, solve_tol, max_iterations):
+        """The solve's knobs, shared by both constructions: the device,
+        the (host, local) layout that ``tap_amg >= 0`` needs, the lane
+        padding (128 on CUDA, 1 elsewhere by default) and the smoother."""
+        self.device = dpar.resolve_device(device)
+        self.tap_amg = tap_amg
+        if tap_amg >= 0 and not (isinstance(mesh, dpar.Mesh2)
+                                 and mesh.n_shards == n_shards):
+            raise ValueError(
+                f"tap_amg = {tap_amg} needs mesh=make_mesh2(H, L) with "
+                f"H * L = {n_shards} shards, not {mesh!r}")
+        self.mesh = mesh
+        if lane_pad is None:
+            lane_pad = 128 if self.device.type == "cuda" else 1
+        self.lane_pad = lane_pad
+        self.dtype = dtype
+        self.relax_kind = RELAX_NAME[relax_type]
+        self.num_smooth_sweeps = sweeps
+        self.relax_weight = weight
+        self.solve_tol = solve_tol
+        self.max_iterations = max_iterations
+        # stagnation guard of ``solve``: stall_run consecutive cycles, each
+        # reducing the residual by less than a factor stall_ratio, stop it
+        # (typically at the f32 floor; solve_mixed goes below it);
+        # stall_run <= 0 turns the guard off
+        self.stall_ratio = 0.999
+        self.stall_run = 4
         self._dA64 = None
         self._precond = None
+
+    # --- SPMD bridge: per-rank hierarchy -> device solve ---------------------
+    @classmethod
+    def from_spmd(cls, hier, make_transport, *, relax_type=None,
+                  num_smooth_sweeps: int = 1, relax_weight: float = 1.0,
+                  solve_tol: float = 1e-7, max_iterations: int = 100,
+                  dtype=torch.float64, lane_pad: int = None,
+                  device="cuda", mesh=None,
+                  tap_amg: int = -1) -> "DeviceHierarchy":
+        """The device plan of a per-rank ``comm.spmd.SpmdHierarchy``: each
+        level's local view packed through ``make_transport(matrix)`` (pads
+        and formats agreed over the transport, the halo plan from the
+        rank-local handshake), P^T from the distributed transpose, the
+        redundant coarse LU as the setup factored it. The knobs are those
+        the in-process route reads from the setup (``relax_type``
+        defaults to Chebyshev); ``lane_pad``, ``device`` and ``mesh`` as
+        in the constructor, with ``tap_amg >= 0`` on ``mesh``'s layout.
+        The views must hold every shard (ROADMAP Queue 1 item 17 lifts
+        that)."""
+        self = cls.__new__(cls)
+        self._set_knobs(device, mesh, hier.levels[0].a_local.n_shards,
+                        tap_amg, lane_pad, dtype,
+                        relax_type or RelaxType.Chebyshev, num_smooth_sweeps,
+                        relax_weight, solve_tol, max_iterations)
+        lane_pad = self.lane_pad
+        self._tr_factory = make_transport
+        self._fine_A = hier.levels[0].a_local
+
+        def put(m, tr, **kw):
+            return device_put_matrix(m, dtype=dtype, lane_pad=lane_pad,
+                                     need_transpose=False,
+                                     device=self.device, tr=tr, **kw)
+
+        def tap_put(m, tr):
+            """TAP plan of a local view: every rank's halo column maps,
+            allgathered, give the same global plan everywhere."""
+            flat = [np.asarray(c) for rank_maps in tr.allgather_obj(
+                [blk.off_proc_column_map for blk in m.shards()])
+                for c in rank_maps]
+            plan = build_tap_plan_from_maps(flat, m.partition, *mesh.shape)
+            return device_put_tap(plan, dtype, self.device, tr=tr,
+                                  first_shard=m.first_shard,
+                                  n_local=len(m.shards()))
+
+        levels: List[DeviceLevel] = []
+        for i, lvl in enumerate(hier.levels):
+            a = lvl.a_local
+            tr = make_transport(a)
+            tap_level = 0 <= tap_amg <= i
+            dA = put(a, tr)
+            dP = dPt = TP = TPt = None
+            if lvl.p_blocks is not None:
+                part = a.partition
+                cb = hier.levels[i + 1].a_local.partition.row_bounds
+                part_p = Partition(part.global_num_rows, int(cb[-1]),
+                                   part.n_shards, part.row_bounds, cb)
+                p_par = ParCSRMatrix.from_local_rows(
+                    lvl.p_blocks, part_p, first_shard=a.first_shard)
+                tr_p = make_transport(p_par)
+                pt_par = ParCSRMatrix.from_local_rows(
+                    ps.dist_transpose(p_par, tr=tr_p, assemble=False),
+                    part_p.transpose(), first_shard=a.first_shard)
+                tr_pt = make_transport(pt_par)
+                dP = put(p_par, tr_p, embed="cols")
+                dPt = put(pt_par, tr_pt, embed="rows")
+                if tap_level:
+                    TP, TPt = tap_put(p_par, tr_p), tap_put(pt_par, tr_pt)
+            dRX = build_relax(a, dA, need=RELAX_NEED[self.relax_kind],
+                              tr=tr)
+            levels.append(DeviceLevel(dA, dRX, dP, dPt,
+                                      tap_put(a, tr) if tap_level else None,
+                                      TP, TPt))
+        self.levels = tuple(levels)
+
+        lu, piv = hier.coarse_lu
+        self.lu = dpar.put_replicated(np.asarray(lu), self.device, dtype)
+        self.piv = dpar.put_replicated(np.asarray(piv, dtype=np.int32) + 1,
+                                       self.device)
+        a_c = hier.levels[-1].a_local
+        part_c = a_c.partition
+        gather_idx, coarse_take = _coarse_plumbing(
+            part_c, self.levels[-1].A.rows_pad, a_c.first_shard,
+            len(a_c.shards()))
+        self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
+        self.coarse_take = dpar.put_stacked(
+            {"coarse_take": coarse_take}, part_c.n_shards, self.device,
+            first_shard=a_c.first_shard)["coarse_take"]
+
+        self.row_bounds = self._fine_A.partition.row_bounds
+        self.rows_pad = self.levels[0].A.rows_pad
+        return self
 
     def format_summary(self) -> List[str]:
         """One line per level: its rows and the packed format of A, P and
@@ -254,9 +367,11 @@ class DeviceHierarchy:
         Returns (x, residual history): x as a float64 host vector, or as
         the stacked device tensor when ``return_device``."""
         if self._dA64 is None:
+            a = self._fine_A
             self._dA64 = device_put_matrix(
-                self._fine_A, dtype=torch.float64, lane_pad=self.lane_pad,
-                need_transpose=False, device=self.device)
+                a, dtype=torch.float64, lane_pad=self.lane_pad,
+                need_transpose=False, device=self.device,
+                tr=self._tr_factory(a) if self._tr_factory else None)
         dA64 = self._dA64
 
         def vec(v):
@@ -300,6 +415,13 @@ class DeviceHierarchy:
     def vector(self, v: np.ndarray) -> torch.Tensor:
         return dpar.device_put_vector(v, self.row_bounds, self.rows_pad,
                                       dtype=self.dtype, device=self.device)
+
+    def vector_local(self, x_locals) -> torch.Tensor:
+        """Fine-level placement from this rank's shard slices (the SPMD
+        twin of ``vector``); they must cover every shard."""
+        return dpar.device_put_vector_local(
+            x_locals, self.row_bounds, self.rows_pad, dtype=self.dtype,
+            device=self.device, first_shard=self._fine_A.first_shard)
 
     def host(self, v: torch.Tensor) -> np.ndarray:
         return dpar.host_vector(v, self.row_bounds)

@@ -16,9 +16,11 @@ on the host or on the device engine (``device.interp``,
 that is present. ``level_engines`` records, level by level, which engine
 ran each and why the host ran in place of a device engine (its width
 cap; every other error of a device engine propagates). With
-``setup_mode = "distributed"`` the RS solver extends the hierarchy through
-the per-shard stages of ``ruge_stuben.par_setup`` over the in-process
-transport instead, on the host whatever the engine knobs say.
+``setup_mode = "distributed"`` the RS, SA and blocked solvers extend the
+hierarchy through the per-shard stages of ``ruge_stuben.par_setup`` over
+the in-process transport instead, on the host whatever the engine knobs
+say (``comm.spmd`` runs the same stages as a whole-hierarchy setup per
+rank).
 ``multilevel.device_hierarchy.DeviceHierarchy`` then packs the levels for
 the device solve.
 """
@@ -49,17 +51,10 @@ from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
 SETUP_MODES = ("global", "distributed")
 
 
-def check_setup_mode(mode: str, unported_distributed: str = None) -> None:
-    """Raise for a ``setup_mode`` other than "global" or "distributed",
-    and for "distributed" on a solver whose distributed setup
-    (``unported_distributed``, named) is not ported yet (ROADMAP Queue 1
-    item 16b)."""
+def check_setup_mode(mode: str) -> None:
+    """Raise for a ``setup_mode`` other than "global" or "distributed"."""
     if mode not in SETUP_MODES:
         raise ValueError(f"setup_mode {mode!r}; one of {SETUP_MODES}")
-    if mode == "distributed" and unported_distributed:
-        raise NotImplementedError(
-            f"setup_mode='distributed': {unported_distributed} is not "
-            f"ported yet (ROADMAP Queue 1 item 16b)")
 
 
 class ParMultilevel:
@@ -76,7 +71,7 @@ class ParMultilevel:
         self.max_coarse = 50
         self.max_levels = 25
         # "global": each setup stage over the global matrix; "distributed":
-        # the per-shard stages (``ruge_stuben.par_setup``, RS only)
+        # the per-shard stages (``ruge_stuben.par_setup``)
         self.setup_mode = "global"
         # the first level whose V-cycle exchanges halos through the
         # topology-aware plan (par_multilevel.hpp:88); -1: none

@@ -11,8 +11,9 @@ the stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
 interpolation and its pattern bound, the operand packing of the device
 interpolation engines, the smoothers' greedy colouring and triangular
 level schedule, smoothed aggregation's MIS(2) and aggregation passes,
-and the per-round weight update of the distributed CLJP splitting. Both
-packages then build
+the per-round weight update of the distributed CLJP splitting, and the
+per-round steps of the distributed MIS(2) and aggregation. Both packages
+then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
 """
@@ -101,6 +102,17 @@ def load():
         lib.symmetric_strength_csr.restype = _i64
         lib.mis2.argtypes = [_i64] + [I64] * 4 + [F64, I64]
         lib.dist_cljp_update.argtypes = [_i64] * 3 + [I64] * 13 + [F64] * 2
+        lib.dist_mis2_step1.argtypes = [_i64] + [I64] * 4 + [F64, F64, I64,
+                                                             I64]
+        lib.dist_mis2_step2.argtypes = ([_i64] * 2 + [I64] * 6
+                                        + [F64, F64, I64, I64, _i64, I64,
+                                           F64, I64])
+        lib.dist_mis2_steps34.argtypes = [_i64] * 2 + [I64] * 8 + [
+            _i64, I64, I64]
+        lib.dist_aggregate_pass1.argtypes = [_i64] * 2 + [I64] * 9
+        lib.dist_aggregate_pass2.argtypes = (
+            [_i64] + [I64] * 6 + [F64] + [I64] * 2 + [F64] + [I64] * 2
+            + [F64] * 2 + [I64] * 2)
         lib.aggregate.argtypes = [_i64] + [I64] * 4 + [F64, I64, F64, I64]
         lib.aggregate.restype = _i64
         lib.split_pattern.argtypes = [_i64, _i64] + [I64] * 6
@@ -129,7 +141,9 @@ def load():
                    lib.cljp_main_loop, lib.pmis_main_loop, lib.mark_strong,
                    lib.glibc_rand_doubles, lib.spgemm_fetch,
                    lib.finalize_interp, lib.level_schedule, lib.mis2,
-                   lib.dist_cljp_update,
+                   lib.dist_cljp_update, lib.dist_mis2_step1,
+                   lib.dist_mis2_step2, lib.dist_mis2_steps34,
+                   lib.dist_aggregate_pass1, lib.dist_aggregate_pass2,
                    lib.interp_dev_widths, lib.interp_dev_pack,
                    lib.interp_dev_widths_mc, lib.interp_dev_pack_mc):
             fn.restype = None
@@ -465,6 +479,150 @@ def dist_cljp_update(n, h, first_local_col, on_indptr, on_indices,
         n, h, first_local_col, *[_p(a, I64) for a in args],
         _p(edgemark_on, I64), _p(edgemark_off, I64), _p(w, F64),
         _p(off_dec, F64))
+
+
+def _pattern_rows(what, n, *indptrs):
+    """The CSR row pointers ``indptrs`` as contiguous int64, each of n + 1
+    entries."""
+    out = [_c(p) for p in indptrs]
+    if any(len(p) != n + 1 for p in out):
+        raise ValueError(f"{what}: a pattern does not have {n} rows")
+    return out
+
+
+def _halo_lookup(what, h, hp_indptr, hp_cols, fr, fst):
+    """The prefetched halo S row patterns (``h`` rows, global columns) and
+    the sorted fringe ids with their states, checked and contiguous."""
+    hp_indptr, hp_cols, fr, fst = (_c(hp_indptr), _c(hp_cols), _c(fr),
+                                   _c(fst))
+    if len(hp_indptr) != h + 1 or len(fst) != len(fr):
+        raise ValueError(f"{what}: halo patterns or fringe arrays do not "
+                         f"match h = {h}")
+    return hp_indptr, hp_cols, fr, fst
+
+
+def dist_mis2_step1(on_indptr, on_indices, off_indptr, off_indices, rr,
+                    halo_r, hst, st):
+    """Step 1 of a distributed MIS(2) round (aggregation/par_mis.cpp:
+    216-655) on one shard: an Unassigned row with no larger-weighted
+    Unassigned or beyond-Selected neighbour, on or off the shard, becomes
+    TmpSelection. In place on ``st`` (contiguous int64 of n)."""
+    lib = load()
+    n = len(st)
+    _check_out(st, n, "st")
+    on_indptr, off_indptr = _pattern_rows("dist_mis2_step1", n, on_indptr,
+                                          off_indptr)
+    hst = _c(hst)
+    rr, halo_r = _f(rr), _f(halo_r)
+    if len(rr) != n or len(halo_r) != len(hst):
+        raise ValueError("dist_mis2_step1: weights do not match the rows "
+                         "or the halo")
+    lib.dist_mis2_step1(n, _p(on_indptr, I64), _p(_c(on_indices), I64),
+                        _p(off_indptr, I64), _p(_c(off_indices), I64),
+                        _p(rr, F64), _p(halo_r, F64), _p(hst, I64),
+                        _p(st, I64))
+
+
+def dist_mis2_step2(h, on_indptr, on_indices, off_indptr, off_indices,
+                    hp_indptr, hp_cols, rr, halo_r, hst, fr, fst, frr, st):
+    """Step 2 (the distance-2 competition) of a distributed MIS(2) round:
+    a TmpSelection row stays one unless a row two steps away, on the
+    shard, in its halo or in the fringe (``fr`` sorted global ids with
+    states ``fst`` and weights ``frr``), is beyond Selected with a larger
+    weight; the survivors become NewSelection. In place on ``st``."""
+    lib = load()
+    n = len(st)
+    _check_out(st, n, "st")
+    on_indptr, off_indptr = _pattern_rows("dist_mis2_step2", n, on_indptr,
+                                          off_indptr)
+    hp_indptr, hp_cols, fr, fst = _halo_lookup("dist_mis2_step2", h,
+                                               hp_indptr, hp_cols, fr, fst)
+    hst = _c(hst)
+    rr, halo_r, frr = _f(rr), _f(halo_r), _f(frr)
+    if (len(rr) != n or len(halo_r) != h or len(hst) != h
+            or len(frr) != len(fr)):
+        raise ValueError("dist_mis2_step2: weights or states do not match "
+                         "n, h or the fringe")
+    lib.dist_mis2_step2(n, h, _p(on_indptr, I64), _p(_c(on_indices), I64),
+                        _p(off_indptr, I64), _p(_c(off_indices), I64),
+                        _p(hp_indptr, I64), _p(hp_cols, I64), _p(rr, F64),
+                        _p(halo_r, F64), _p(hst, I64), _p(fr, I64),
+                        len(fr), _p(fst, I64), _p(frr, F64), _p(st, I64))
+
+
+def dist_mis2_steps34(h, on_indptr, on_indices, off_indptr, off_indices,
+                      hp_indptr, hp_cols, hst, fr, fst, st):
+    """Steps 3 and 4 of a distributed MIS(2) round: an Unassigned or
+    TmpSelection row next to a NewSelection, or to a row (on the shard or
+    in its halo) next to one, becomes NewUnselection. In place on
+    ``st``."""
+    lib = load()
+    n = len(st)
+    _check_out(st, n, "st")
+    on_indptr, off_indptr = _pattern_rows("dist_mis2_steps34", n,
+                                          on_indptr, off_indptr)
+    hp_indptr, hp_cols, fr, fst = _halo_lookup("dist_mis2_steps34", h,
+                                               hp_indptr, hp_cols, fr, fst)
+    hst = _c(hst)
+    if len(hst) != h:
+        raise ValueError("dist_mis2_steps34: halo states do not match h")
+    lib.dist_mis2_steps34(n, h, _p(on_indptr, I64),
+                          _p(_c(on_indices), I64), _p(off_indptr, I64),
+                          _p(_c(off_indices), I64), _p(hp_indptr, I64),
+                          _p(hp_cols, I64), _p(hst, I64), _p(fr, I64),
+                          len(fr), _p(fst, I64), _p(st, I64))
+
+
+def dist_aggregate_pass1(first_local_col, s_on_indptr, s_on_indices,
+                         s_off_indptr, s_off_indices, cmap, st, hst, hagg,
+                         agg):
+    """Pass 1 of the distributed aggregation (aggregation/
+    par_aggregate.cpp:7-187) on one shard: a row that is no root joins the
+    aggregate of its first root neighbour in global column order, on the
+    shard (``agg``) or in its halo (``hst`` / ``hagg``). In place on
+    ``agg`` (contiguous int64 of n)."""
+    lib = load()
+    n = len(agg)
+    _check_out(agg, n, "agg")
+    s_on_indptr, s_off_indptr = _pattern_rows(
+        "dist_aggregate_pass1", n, s_on_indptr, s_off_indptr)
+    cmap, st, hst, hagg = _c(cmap), _c(st), _c(hst), _c(hagg)
+    if len(st) != n or not len(cmap) == len(hst) == len(hagg):
+        raise ValueError("dist_aggregate_pass1: states or halo arrays do "
+                         "not match the shard")
+    lib.dist_aggregate_pass1(
+        n, first_local_col, _p(s_on_indptr, I64), _p(_c(s_on_indices), I64),
+        _p(s_off_indptr, I64), _p(_c(s_off_indices), I64), _p(cmap, I64),
+        _p(st, I64), _p(hst, I64), _p(hagg, I64), _p(agg, I64))
+
+
+def dist_aggregate_pass2(s_on_indptr, s_on_indices, s_off_indptr,
+                         s_off_indices, a_on_indptr, a_on_indices,
+                         a_on_data, a_off_indptr, a_off_indices, a_off_data,
+                         amap, smap, r_loc, halo_r, hagg, agg):
+    """Pass 2 of the distributed aggregation: a row still unassigned
+    takes the aggregate of its strongest assigned neighbour (|a_ij| plus
+    the neighbour's weight), encoded as -(aggregate + 1) so the pass does
+    not cascade; the caller decodes. In place on ``agg``."""
+    lib = load()
+    n = len(agg)
+    _check_out(agg, n, "agg")
+    s_on_indptr, s_off_indptr, a_on_indptr, a_off_indptr = _pattern_rows(
+        "dist_aggregate_pass2", n, s_on_indptr, s_off_indptr, a_on_indptr,
+        a_off_indptr)
+    amap, smap, hagg = _c(amap), _c(smap), _c(hagg)
+    r_loc, halo_r = _f(r_loc), _f(halo_r)
+    if len(r_loc) != n or not len(smap) == len(halo_r) == len(hagg):
+        raise ValueError("dist_aggregate_pass2: weights or halo arrays do "
+                         "not match the shard")
+    lib.dist_aggregate_pass2(
+        n, _p(s_on_indptr, I64), _p(_c(s_on_indices), I64),
+        _p(s_off_indptr, I64), _p(_c(s_off_indices), I64),
+        _p(a_on_indptr, I64), _p(_c(a_on_indices), I64),
+        _p(_f(a_on_data), F64), _p(a_off_indptr, I64),
+        _p(_c(a_off_indices), I64), _p(_f(a_off_data), F64),
+        _p(amap, I64), _p(smap, I64), _p(r_loc, F64), _p(halo_r, F64),
+        _p(hagg, I64), _p(agg, I64))
 
 
 def aggregate(s_indptr, s_indices, a_indptr, a_indices, a_data, states, r,

@@ -1,5 +1,5 @@
 """Distributed-memory AMG setup stages over per-shard data (copy of
-raptor_tpu.ruge_stuben.par_setup, the Ruge-Stuben stages).
+raptor_tpu.ruge_stuben.par_setup).
 
 These are the shard-local + transport formulations of the setup
 algorithms (the reference's par_strength.cpp:14-346,
@@ -10,8 +10,11 @@ same code runs when the global matrix never exists on one host. The
 host-global implementations (strength.py, cf_splitting.py,
 interpolation.py) stay the oracle: the stages give them back for every
 shard count, except Falgout and HMIS, whose interior passes depend on the
-partition as the reference's do. The smoothed-aggregation and blocked
-stages are ROADMAP Queue 1 item 16b.
+partition as the reference's do. The smoothed-aggregation stages
+(aggregation/par_mis.cpp, par_aggregate.cpp, par_candidates.cpp,
+par_prolongation.cpp and the symmetric strength of par_strength.cpp) follow
+the same contract; their per-round MIS(2) and aggregation steps run in the
+native kernels, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from raptor_tpu_torch.ruge_stuben.cf_splitting import (
 U, S_, F = CFState.Unassigned, CFState.Selected, CFState.Unselected
 NEW_C = CFState.NewSelection
 NO_NBR = CFState.NoNeighbors
+TMP, NEW_U = CFState.TmpSelection, CFState.NewUnselection
 
 
 def _per_shard_rows(arr, shards):
@@ -973,3 +977,292 @@ def dist_split_hmis(s_par: ParCSRMatrix, rand_vals: np.ndarray,
     states = _dist_rs_on_proc(s_par, second_pass=False)
     states = _reset_boundaries(s_par, states, tr)
     return dist_split_pmis(s_par, rand_vals, states0=states, tr=tr)
+
+
+# --- smoothed aggregation stages (aggregation/par_mis.cpp,
+# --- par_aggregate.cpp equivalents) -----------------------------------------
+
+def dist_mis2(s_par: ParCSRMatrix, rand_vals: np.ndarray,
+              max_rounds: int = 10000,
+              tr: Optional[Transport] = None) -> np.ndarray:
+    """Distributed MIS(2) (aggregation/par_mis.cpp:216-655): Luby-style
+    with random weights; the distance-2 competition reads prefetched halo
+    S row patterns plus fetched fringe ids (the reference's
+    comm_coarse_dist1 bookkeeping). Each round's steps run in the native
+    kernels, in place on the shard's states."""
+    tr = tr or InProcessTransport(s_par)
+    shards = s_par.shards()
+
+    r_loc = [np.asarray(rv, dtype=np.float64)
+             for rv in _per_shard_rows(rand_vals, shards)]
+    halo_r = tr.fetch(r_loc)
+    wanted = [np.asarray(blk.off_proc_column_map) for blk in shards]
+    halo_pat = tr.fetch_rows(s_par, wanted)
+    # fringe: global cols referenced by halo rows (distance-2 data)
+    fringe = [np.unique(hp[1]) for hp in halo_pat]
+    fringe_r = tr.fetch_ids(r_loc, fringe)
+
+    blk64 = []
+    for s, blk in enumerate(shards):
+        on, off = blk.on_proc, blk.off_proc
+        n = on.n_rows
+        onm = sp.csr_matrix((np.ones(on.nnz), on.indices, on.indptr),
+                            shape=(n, on.n_cols))
+        onm.sort_indices()
+        offm = sp.csr_matrix((np.ones(off.nnz), off.indices, off.indptr),
+                             shape=(n, max(1, len(wanted[s]))))
+        offm.sort_indices()
+        blk64.append(tuple(np.asarray(x, dtype=np.int64) for x in (
+            onm.indptr, onm.indices, offm.indptr, offm.indices)))
+
+    local_states = [np.full(len(b[0]) - 1, int(U), dtype=np.int64)
+                    for b in blk64]
+
+    def halo_states():
+        return tr.fetch([st.astype(np.float64) for st in local_states])
+
+    def fringe_states():
+        return tr.fetch_ids([st.astype(np.float64) for st in local_states],
+                            fringe)
+
+    for _ in range(max_rounds):
+        if tr.allreduce_sum(
+                [int(np.count_nonzero((st == int(U)) | (st == int(TMP))))
+                 for st in local_states]) == 0:
+            break
+        # step 1: TMP if no D-out-neighbour (r[v] > r[w]) is U or > SEL
+        halo_st = halo_states()
+        for s, st in enumerate(local_states):
+            native.dist_mis2_step1(*blk64[s], r_loc[s], halo_r[s],
+                                   halo_st[s].astype(np.int64), st)
+
+        # step 2: distance-2 competition (the halo's fresh TMP states)
+        halo_st2, fringe_st2 = halo_states(), fringe_states()
+        for s, st in enumerate(local_states):
+            hi, hc, _ = halo_pat[s]
+            native.dist_mis2_step2(
+                len(wanted[s]), *blk64[s], hi, hc, r_loc[s], halo_r[s],
+                halo_st2[s].astype(np.int64), fringe[s],
+                fringe_st2[s].astype(np.int64), fringe_r[s], st)
+
+        # steps 3+4: unselect U nodes adjacent to a NEW_S or to a node
+        # that points at a NEW_S
+        halo_st3, fringe_st3 = halo_states(), fringe_states()
+        for s, st in enumerate(local_states):
+            hi, hc, _ = halo_pat[s]
+            native.dist_mis2_steps34(
+                len(wanted[s]), *blk64[s], hi, hc,
+                halo_st3[s].astype(np.int64), fringe[s],
+                fringe_st3[s].astype(np.int64), st)
+
+        # step 5: finalize (TMP persists across rounds, mis.cpp:316-325)
+        for st in local_states:
+            st[st == int(NEW_C)] = int(S_)
+            st[st == int(NEW_U)] = int(F)
+
+    return tr.allgather_concat(local_states)
+
+
+def dist_aggregate(a: ParCSRMatrix, s_par: ParCSRMatrix, states_global,
+                   rand_vals: Optional[np.ndarray] = None,
+                   tr: Optional[Transport] = None):
+    """Distributed aggregation (aggregation/par_aggregate.cpp:7-187):
+    MIS roots seed aggregates (globally numbered by root rank), pass 1
+    joins the first root neighbour in GLOBAL column order, pass 2 joins
+    the strongest assigned neighbour (|a_ij| + r[col]), non-cascading.
+    Returns (number of aggregates, aggregate of every row)."""
+    tr = tr or InProcessTransport(s_par)
+    shards_s = s_par.shards()
+    shards_a = a.shards()
+
+    local_states = _per_shard_rows(states_global, shards_s)
+    root_counts = [int(np.count_nonzero(st > 0)) for st in local_states]
+    starts = tr.exscan_sum(root_counts)
+    n_aggs = int(tr.allreduce_sum(root_counts))
+    local_agg = []
+    for st, a0 in zip(local_states, starts):
+        agg = np.full(len(st), -1, dtype=np.int64)
+        roots = np.nonzero(st > 0)[0]
+        agg[roots] = int(a0) + np.arange(len(roots))
+        local_agg.append(agg)
+    r_rows = _per_shard_rows(rand_vals, shards_s)
+    r_loc = [(np.asarray(r_rows[s], dtype=np.float64)
+              if r_rows is not None else np.zeros(len(local_states[s])))
+             for s in range(len(shards_s))]
+    halo_r = tr.fetch(r_loc)
+
+    # pass 1: first root neighbour in global column order
+    halo_st = tr.fetch([st.astype(np.float64) for st in local_states])
+    halo_agg = tr.fetch([ag.astype(np.float64) for ag in local_agg])
+    for s, blk in enumerate(shards_s):
+        on, off = blk.on_proc, blk.off_proc
+        native.dist_aggregate_pass1(
+            blk.first_local_col, on.indptr, on.indices, off.indptr,
+            off.indices, blk.off_proc_column_map, local_states[s],
+            halo_st[s].astype(np.int64), halo_agg[s].astype(np.int64),
+            local_agg[s])
+
+    # pass 2: strongest assigned neighbour, non-cascading
+    halo_agg2 = tr.fetch([ag.astype(np.float64) for ag in local_agg])
+    for s, blk in enumerate(shards_s):
+        on, off = blk.on_proc, blk.off_proc
+        aon, aoff = shards_a[s].on_proc, shards_a[s].off_proc
+        native.dist_aggregate_pass2(
+            on.indptr, on.indices, off.indptr, off.indices, aon.indptr,
+            aon.indices, aon.data, aoff.indptr, aoff.indices, aoff.data,
+            shards_a[s].off_proc_column_map, blk.off_proc_column_map,
+            r_loc[s], halo_r[s], halo_agg2[s].astype(np.int64),
+            local_agg[s])
+    # decode pass 2 (aggregate.cpp:60-95, with its no-neighbour quirk:
+    # best_agg = -1 encodes to aggregate 0)
+    for agg in local_agg:
+        neg = agg < 0
+        agg[neg] = -(agg[neg] + 1)
+
+    return n_aggs, tr.allgather_concat(local_agg)
+
+
+def dist_fit_candidates(a: ParCSRMatrix, n_aggs: int, aggregates_global, b,
+                        tol: float = 1e-10,
+                        tr: Optional[Transport] = None,
+                        assemble: bool = True):
+    """Distributed tentative prolongator, one candidate
+    (par_candidates.cpp:7-210): aggregates may span shards, so the
+    per-aggregate norms reduce over an n_aggs-sized allreduce. Returns
+    (T, R coarse candidate norms); ``assemble=False`` gives
+    per-LOCAL-shard T row blocks."""
+    tr = tr or InProcessTransport(a)
+    shards = a.shards()
+
+    agg_l = _per_shard_rows(aggregates_global, shards)
+    b_l = _per_shard_rows(b, shards)
+    partial = np.zeros(n_aggs)
+    for agg, bb in zip(agg_l, b_l):
+        np.add.at(partial, agg, bb ** 2)       # this process's partial
+    norms = np.sqrt(tr.allreduce_vec([partial]))
+    ok = norms > norms * tol   # per-column threshold as in candidates.cpp
+    blocks = []
+    for agg, bb in zip(agg_l, b_l):
+        vals = np.where(ok[agg],
+                        bb / np.where(norms[agg] == 0.0, 1.0, norms[agg]),
+                        0.0)
+        n = len(agg)
+        t = sp.csr_matrix((vals, (np.arange(n), agg)), shape=(n, n_aggs))
+        t.sort_indices()
+        blocks.append(CSRMatrix.from_scipy(t))
+    R = np.where(ok, norms, 0.0)
+    if not assemble:
+        return blocks, R
+    g = sp.vstack([t.to_scipy() for t in blocks]).tocsr()
+    g.sort_indices()
+    return CSRMatrix.from_scipy(g), R
+
+
+def dist_jacobi_prolongation(a: ParCSRMatrix, t, omega: float = 4.0 / 3.0,
+                             num_smooth_steps: int = 1,
+                             tr: Optional[Transport] = None,
+                             assemble: bool = True):
+    """Distributed P = (I - w D~^{-1} A)^k T (par_prolongation.cpp:8-186):
+    per shard the |row sum| weights are local (the full on + off row), and
+    each smoothing step fetches the halo rows of the current P for the
+    local product. ``t``: global T or per-LOCAL-shard row blocks."""
+    tr = tr or InProcessTransport(a)
+    shards = a.shards()
+    p_blocks = _matrix_rows(t, shards)
+    nc = p_blocks[0].n_cols
+    wanted = [np.asarray(blk.off_proc_column_map) for blk in shards]
+
+    for _ in range(num_smooth_steps):
+        halo_rows = tr.fetch_rows(p_blocks, wanted,
+                                  row_bounds=a.partition.row_bounds)
+        out_parts = []
+        for s, blk in enumerate(shards):
+            on, off = blk.on_proc, blk.off_proc
+            n = on.n_rows
+            absum = (np.bincount(on.row_ids(), weights=np.abs(on.data),
+                                 minlength=n)
+                     + (np.bincount(off.row_ids(), weights=np.abs(off.data),
+                                    minlength=n) if off.nnz else 0.0))
+            inv = np.where(absum != 0.0, omega / np.abs(absum), 0.0)
+            p_loc = p_blocks[s].to_scipy()
+            hi, hc, hv = halo_rows[s]
+            p_halo = sp.csr_matrix((hv, hc, hi), shape=(len(wanted[s]), nc))
+            a_on = sp.csr_matrix((on.data, on.indices, on.indptr),
+                                 shape=(n, on.n_cols))
+            a_off = sp.csr_matrix((off.data, off.indices, off.indptr),
+                                  shape=(n, max(1, len(wanted[s]))))
+            ap = a_on @ p_loc + (a_off @ p_halo if off.nnz else 0.0)
+            ap = sp.diags(inv) @ ap
+            out = (p_loc - ap).tocsr()
+            out.sum_duplicates()
+            out.data[np.abs(out.data) <= ZERO_TOL] = 0.0
+            out.eliminate_zeros()
+            out.sort_indices()
+            out_parts.append(out)
+        p_blocks = [CSRMatrix.from_scipy(o) for o in out_parts]
+    if not assemble:
+        return p_blocks
+    g = sp.vstack([pb.to_scipy() for pb in p_blocks]).tocsr()
+    g.sort_indices()
+    return CSRMatrix.from_scipy(g)
+
+
+def dist_symmetric_strength(a: ParCSRMatrix, theta: float = 0.25,
+                            tr: Optional[Transport] = None):
+    """Distributed symmetric (SA) strength (par_strength.cpp:347-540): an
+    off-diagonal entry is kept if it passes its row's threshold OR its
+    column's row threshold; the thresholds of remote columns arrive in one
+    halo fetch. Returns per-shard (on_mask, off_mask) keep-masks."""
+    tr = tr or InProcessTransport(a)
+    shards = a.shards()
+
+    def diag_sign(on):
+        rows_on = on.row_ids()
+        is_diag = on.indices == rows_on
+        dloc = np.zeros(on.n_rows)
+        dloc[rows_on[is_diag]] = on.data[is_diag]
+        return rows_on, is_diag, dloc < 0.0
+
+    # pass 1: per-row threshold theta * (max|neg diag| / min) off-diag
+    local_thr = []
+    for blk in shards:
+        on, off = blk.on_proc, blk.off_proc
+        n = on.n_rows
+        rows_on, is_diag, neg = diag_sign(on)
+        rows_off = off.row_ids()
+        mn = np.full(n, np.inf)
+        mx = np.full(n, -np.inf)
+        sel = ~is_diag
+        np.minimum.at(mn, rows_on[sel], on.data[sel])
+        np.maximum.at(mx, rows_on[sel], on.data[sel])
+        if off.nnz:
+            np.minimum.at(mn, rows_off, off.data)
+            np.maximum.at(mx, rows_off, off.data)
+        local_thr.append(np.where(neg, mx, mn) * theta)
+    halo_thr = tr.fetch(local_thr)
+    local_neg = [diag_sign(blk.on_proc)[2].astype(np.float64)
+                 for blk in shards]
+    halo_neg = tr.fetch(local_neg)
+
+    def strong(vals, t, ng):
+        return np.where(ng, vals > t, vals < t)
+
+    masks = []
+    for s, blk in enumerate(shards):
+        on, off = blk.on_proc, blk.off_proc
+        rows_on, rows_off = on.row_ids(), off.row_ids()
+        is_diag = on.indices == rows_on
+        thr = local_thr[s]
+        neg = local_neg[s] > 0.5
+        s_row_on = strong(on.data, thr[rows_on], neg[rows_on])
+        s_col_on = strong(on.data, thr[on.indices], neg[on.indices])
+        on_mask = is_diag | (~is_diag & (s_row_on | s_col_on))
+        if off.nnz:
+            s_row_off = strong(off.data, thr[rows_off], neg[rows_off])
+            s_col_off = strong(off.data, halo_thr[s][off.indices],
+                               halo_neg[s][off.indices] > 0.5)
+            off_mask = s_row_off | s_col_off
+        else:
+            off_mask = np.zeros(0, dtype=bool)
+        masks.append((on_mask, off_mask))
+    return masks

@@ -2,11 +2,15 @@
 PyTorch port raptor_tpu_torch: one JAX hierarchy per (grid, shard count)
 for the 2-D flagship and for the 3-D 27-point Laplacian, and the
 conversion of its matrices into the port's containers through
-``raptor_tpu_torch.convert``."""
+``raptor_tpu_torch.convert``, and the one-intra-op-thread fixture that
+every parity file imports (``from _torch_parity import
+_one_intra_op_thread``)."""
 
 import functools
 
 import numpy as np
+import pytest
+import torch
 
 from raptor_tpu.core.types import CoarsenType, InterpType, RelaxType
 from raptor_tpu.gallery.stencils import (
@@ -16,6 +20,18 @@ from raptor_tpu_torch import convert
 from raptor_tpu_torch.core.types import RelaxType as TRelaxType
 
 ANISO = (0.001, np.pi / 8)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_intra_op_thread():
+    """One intra-op thread for these small shapes: when several test
+    processes share the machine, a thread per core in each makes torch's
+    many small ops (the SOR level sweeps above all) wait on each other,
+    tens of times slower than on one thread."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def aniso(n: int, n_shards: int):

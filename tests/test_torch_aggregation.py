@@ -36,6 +36,7 @@ from raptor_tpu_torch.core.types import StrengthType  # noqa: E402
 from raptor_tpu_torch.ruge_stuben import strength as tstr  # noqa: E402
 
 from _torch_parity import SA_PROBLEMS, jax_sa, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 PROBLEMS = ["aniso25", "lap16", "lap64"]
 STAGES = ["strength", "mis2", "aggregate", "aggregate_rand", "candidates1",

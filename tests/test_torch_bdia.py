@@ -24,6 +24,7 @@ from raptor_tpu_torch.device import formats as tfmt  # noqa: E402
 from raptor_tpu_torch.device import par as tpar  # noqa: E402
 
 from _torch_parity import jax_hierarchy, jax_hierarchy3d, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 LANE = 128
 # (problem, shards, level, operator): every BDIA operator of the two

@@ -28,6 +28,7 @@ from raptor_tpu_torch.device import par as tpar  # noqa: E402
 from raptor_tpu_torch.gallery import fem as tfem  # noqa: E402
 
 from _torch_parity import to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 DATA = jbsr._BSR_DATA
 META = jbsr._BSR_META

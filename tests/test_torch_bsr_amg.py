@@ -1,8 +1,9 @@
 """The blocked (BSR) AMG slice of the port against the JAX package, end to
 end: ``ParBSRRugeStubenSolver``'s hierarchies bit for bit, the device
-leaves of ``BSRDeviceHierarchy``, one V-cycle, the solve and BSR-PCG
-histories, a JAX hierarchy carried across by ``convert``, the card's
-padding on the CPU, and the entry points' defaults.
+leaves of ``BSRDeviceHierarchy``, one V-cycle, a JAX hierarchy carried
+across by ``convert``, BSR-PCG histories and the entry points' defaults
+(the solve histories and the card's padding on the CPU are in
+tests/test_torch_bsr_amg_solve.py, which takes this file's helpers).
 
 The problem is tests/test_bsr_amg.py's: 24 x 12 Q1 plane-stress
 elasticity (2 dofs a node), theta 0.25, RS coarsening with modified
@@ -38,6 +39,7 @@ from raptor_tpu_torch.device.bsr import device_put_bsr  # noqa: E402
 from raptor_tpu_torch.krylov.cg import cg  # noqa: E402
 
 from _torch_parity import arrays  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 NX, NY = 24, 12
 LEVELS = [624, 152, 40]
@@ -214,26 +216,6 @@ def _assert_same_history(t, j):
     np.testing.assert_allclose(tx, jx, rtol=0, atol=1e-9 * np.abs(jx).max())
 
 
-@pytest.mark.parametrize("n_shards", [1, 4])
-@pytest.mark.parametrize("sweeps", [1, 3])
-def test_solve_history_matches_jax(n_shards, sweeps):
-    """f64 blocked V-cycles to 1e-6, b = A 1: the same cycle count and
-    residual histories equal to 1e-9 relative (-1 padding included).
-    Block Chebyshev(3) converges, with the host-recomputed residual below
-    2e-6 (tests/test_bsr_amg.py); damped block Jacobi (sweeps 1) stops at
-    the 100-cycle cap in both packages."""
-    t = _port_solve(_port_dh(n_shards, sweeps))
-    j = _jax_solve(n_shards, sweeps)
-    _assert_same_history(t, j)
-    b = _rhs(_port_ml("rs", 1))
-    rel = (np.linalg.norm(b - _port_ml("rs", n_shards).levels[0].A.mult(t[0]))
-           / np.linalg.norm(b))
-    if sweeps == 3:
-        assert j[1][j[2]] < 1e-6 and rel < 2e-6
-    else:
-        assert t[2] == 100 and 1e-6 < rel < 1e-3
-
-
 def test_carried_jax_hierarchy_gives_jax_history():
     """JAX's own hierarchy, carried across as numpy arrays by
     ``convert.bsr_hierarchy_from_numpy``, solves like JAX."""
@@ -248,26 +230,6 @@ def test_carried_jax_hierarchy_gives_jax_history():
     with pytest.raises(ValueError, match="nodal prolongators"):
         convert.bsr_hierarchy_from_numpy(levels, p_nodals[:1], 2,
                                          jml.coarse_lu)
-
-
-@pytest.mark.parametrize("n_shards", [1, 4])
-def test_card_padding_on_cpu_keeps_history(n_shards):
-    """lane_pad=128 packs the nodal operators as the card does (BDIA at
-    this size, every width a multiple of 128) and pads each component to
-    those widths; its history equals lane_pad=1's to 1e-12 relative (and
-    1e-15 absolute: the padded BDIA sums in another order, and a relative
-    residual carries rounding of about 1e-16 of its own)."""
-    dh1, dh128 = _port_dh(n_shards, 3), _port_dh(n_shards, 3, lane_pad=128)
-    for lvl in dh128.levels[:-1]:
-        for M in lvl.Pn + lvl.PnT:
-            assert M.rows_pad % 128 == 0 and M.cols_pad % 128 == 0
-    # the fine components are padded past the blocked rows
-    assert dh128.levels[0].PnT[0].cols_pad > dh128.levels[0].Ab.brows_pad
-    assert dh128.levels[0].Pn[0].on_format == "bdia"
-    (x1, h1, k1), (x2, h2, k2) = _port_solve(dh1), _port_solve(dh128)
-    assert k1 == k2
-    np.testing.assert_allclose(h2, h1, rtol=1e-12, atol=1e-15)
-    np.testing.assert_allclose(x2, x1, rtol=0, atol=1e-12 * np.abs(x1).max())
 
 
 @pytest.mark.parametrize("n_shards", [1, 4])
@@ -298,14 +260,6 @@ def test_bsr_pcg_matches_jax(n_shards):
     assert tr.res[k] < 1e-10
     np.testing.assert_allclose(tr.res, np.asarray(jr.res), rtol=1e-9,
                                atol=1e-16)
-
-
-def test_distributed_setup_raises():
-    ml = ParBSRRugeStubenSolver(2, strong_threshold=0.25)
-    ml.setup_mode = "distributed"
-    A, _ = par_fem("elasticity", 8, 4, 2)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ml.setup(A)
 
 
 def test_default_device_raises_without_cuda(monkeypatch):

@@ -3,8 +3,8 @@
 stages on the same input, bit for bit, and against the port's own global
 stages (the RS cases of tests/test_dist_setup.py); ``setup_mode =
 "distributed"`` hierarchies against JAX's level by level; and the knobs
-the port does not run, which raise (``tap_amg`` and the distributed setup
-now run).
+the port does not run, which raise. The smoothed-aggregation and blocked
+stages are in tests/test_torch_dist_sa.py.
 """
 
 import numpy as np
@@ -34,18 +34,7 @@ from raptor_tpu_torch.ruge_stuben.strength import strength  # noqa: E402
 from raptor_tpu_torch.utils.glibc_rand import form_rand_weights  # noqa
 
 from _torch_parity import ANISO  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for these small shapes: when several test
-    processes share the machine, a thread per core in each makes torch's
-    many small ops (the SOR level sweeps above all) wait on each other,
-    tens of times slower than on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 
 SHARDS = [1, 4, 8]
@@ -408,17 +397,6 @@ def test_unknown_setup_mode_raises():
                ParBSRRugeStubenSolver(2, 0.25)):
         ml.setup_mode = "sharded"
         with pytest.raises(ValueError, match="setup_mode"):
-            ml.setup(_grid())
-        assert ml.levels == []
-
-
-def test_sa_and_bsr_distributed_setup_raise():
-    from raptor_tpu_torch import (ParBSRRugeStubenSolver,
-                                  ParSmoothedAggregationSolver)
-    for ml in (ParSmoothedAggregationSolver(0.25),
-               ParBSRRugeStubenSolver(2, 0.25)):
-        ml.setup_mode = "distributed"
-        with pytest.raises(NotImplementedError, match="item 16b"):
             ml.setup(_grid())
         assert ml.levels == []
 

@@ -25,6 +25,7 @@ from raptor_tpu_torch.device import formats as tfmt  # noqa: E402
 from raptor_tpu_torch.device import par as tpar  # noqa: E402
 
 from _torch_parity import jax_hierarchy, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 N = 64
 # (name, level, operator, embed, force_format)

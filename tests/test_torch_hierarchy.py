@@ -30,6 +30,7 @@ from raptor_tpu_torch.multilevel.device_hierarchy import (  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     jax_hierarchy, jax_rs, port_hierarchy, rhs, to_port)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 N = 64
 # the solves run on 32 x 32 (5 levels), which keeps the JAX compiles short

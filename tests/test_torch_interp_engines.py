@@ -40,6 +40,7 @@ from raptor_tpu_torch.ruge_stuben import interpolation as tint  # noqa: E402
 from raptor_tpu_torch.ruge_stuben.strength import strength  # noqa: E402
 
 from _torch_parity import to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 ANISO = (0.001, np.pi / 8)
 

@@ -39,6 +39,7 @@ from raptor_tpu_torch.multilevel.device_hierarchy import (  # noqa: E402
     DeviceHierarchy)
 
 from _torch_parity import jax_rs, port_hierarchy, rhs, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 N = 24
 TOL = 1e-8

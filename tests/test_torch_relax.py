@@ -22,6 +22,7 @@ from raptor_tpu_torch.device import par as tpar  # noqa: E402
 from raptor_tpu_torch.device import relax as trelax  # noqa: E402
 
 from _torch_parity import jax_rs, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 N = 24
 LEAVES = ("diag", "inv_diag", "has_diag", "u_cols", "u_vals", "l_cols",

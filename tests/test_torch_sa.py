@@ -36,6 +36,7 @@ from raptor_tpu_torch.multilevel.device_hierarchy import (  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     SA_PROBLEMS, jax_sa, rhs, sa_matrix, to_port)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 # level sizes of the JAX package's SA hierarchies
 LEVELS = {"aniso25": [625, 100, 19], "lap24": [13824, 361, 8],

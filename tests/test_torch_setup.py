@@ -27,6 +27,7 @@ from raptor_tpu_torch.utils import glibc_rand as trand  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     ANISO, assert_same_matrix, jax_hierarchy, to_port)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 CASES = [(32, 1), (64, 1), (64, 4), (48, 8)]
 
@@ -129,19 +130,6 @@ def test_symmetric_strength_rs_matches_jax(coarsen):
             == [set(d) for d in jml.setup_level_times]
             == [{"strength", "cf_splitting", "interpolation", "RAP"}]
             * (tml.num_levels - 1))
-
-
-def test_unported_options_raise():
-    """Options of the reference that the port does not run yet raise:
-    smoothed aggregation's distributed setup (per-shard stages over a
-    transport)."""
-    from raptor_tpu_torch import ParSmoothedAggregationSolver
-    ml = ParSmoothedAggregationSolver(0.25)
-    ml.setup_mode = "distributed"
-    with pytest.raises(NotImplementedError, match="par_setup"):
-        ml.setup(tst.par_stencil_grid(tst.diffusion_stencil_2d(*ANISO),
-                                      (16, 16), 2))
-    assert ml.levels == []
 
 
 def test_port_imports_neither_jax_nor_raptor_tpu():

@@ -40,6 +40,7 @@ from raptor_tpu_torch.ruge_stuben import strength as tstr  # noqa: E402
 from _torch_parity import (  # noqa: E402
     assert_same_history, assert_same_matrix, jax_hierarchy3d, jax_solve3d,
     rhs, to_port)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 CASES = [(12, 1), (16, 1), (16, 4)]
 COARSENINGS = ["PMIS", "HMIS"]

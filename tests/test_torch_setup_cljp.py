@@ -24,6 +24,7 @@ from raptor_tpu_torch.ruge_stuben import interpolation as tinterp  # noqa: E402
 from raptor_tpu_torch.ruge_stuben import strength as tstr  # noqa: E402
 
 from _torch_parity import ANISO, jax_rs, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 CONFIGS = [("CLJP", "ModClassical"), ("Falgout", "ModClassical"),
            ("RS", "Direct"), ("CLJP", "Direct")]

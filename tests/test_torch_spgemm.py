@@ -36,6 +36,7 @@ from raptor_tpu_torch.multilevel.par_multilevel import (  # noqa: E402
     ParRugeStubenSolver)
 
 from _torch_parity import SA_PROBLEMS, sa_matrix  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 SENT = int(tsp.SENT)
 

@@ -23,22 +23,12 @@ from raptor_tpu.device import par as jpar  # noqa: E402
 from raptor_tpu.device import tap_ops as jops  # noqa: E402
 from raptor_tpu.gallery import stencils as jst  # noqa: E402
 from raptor_tpu_torch.comm import tap as ttap  # noqa: E402
+from raptor_tpu_torch.comm.transport import InProcessTransport  # noqa
 from raptor_tpu_torch.device import par as tpar  # noqa: E402
 from raptor_tpu_torch.device.tap_ops import tap_spmv, tap_spmv_T  # noqa
 
 from _torch_parity import ANISO, to_port  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for these small shapes: when several test
-    processes share the machine, a thread per core in each makes torch's
-    many small ops (the SOR level sweeps above all) wait on each other,
-    tens of times slower than on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 
 LAYOUTS = [(2, 4), (4, 2), (8, 1), (1, 8)]
@@ -175,12 +165,21 @@ def test_tap_exchange_is_the_plain_exchange():
 
 
 def test_device_put_tap_types_and_transport_raise():
+    """A transport whose view holds every shard uploads the same plan; a
+    view of fewer shards raises (one controller per shard group: item
+    17)."""
     tA = to_port(_jax_matrix("aniso", 8))
     plan = ttap.build_tap_plan(tA, 2, 4)
-    T = ttap.device_put_tap(plan, torch.float32, torch.device("cpu"))
+    cpu = torch.device("cpu")
+    T = ttap.device_put_tap(plan, torch.float32, cpu)
     assert T.sendL_mask.dtype == torch.float32
     assert T.sendL_idx.dtype == torch.int64
     assert (T.H, T.L, T.halo_pad) == (2, 4, plan.halo_pad)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttap.device_put_tap(plan, torch.float32, torch.device("cpu"),
-                            tr=object())
+    tr = InProcessTransport(tA)
+    T2 = ttap.device_put_tap(plan, torch.float32, cpu, tr=tr,
+                             first_shard=0, n_local=8)
+    for f in ttap._TAP_DATA:
+        assert torch.equal(getattr(T2, f), getattr(T, f)), f
+    with pytest.raises(NotImplementedError, match="item 17"):
+        ttap.device_put_tap(plan, torch.float32, cpu, tr=tr,
+                            first_shard=4, n_local=4)

@@ -36,18 +36,7 @@ from raptor_tpu_torch.multilevel.par_multilevel import (  # noqa: E402
     ParRugeStubenSolver as TRS)
 
 from _torch_parity import ANISO  # noqa: E402
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_intra_op_thread():
-    """One intra-op thread for these small shapes: when several test
-    processes share the machine, a thread per core in each makes torch's
-    many small ops (the SOR level sweeps above all) wait on each other,
-    tens of times slower than on one thread."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True)

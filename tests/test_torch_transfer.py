@@ -34,6 +34,7 @@ from raptor_tpu_torch.multilevel.device_hierarchy import (  # noqa: E402
 
 from _torch_parity import (  # noqa: E402
     assert_same_history, jax_hierarchy3d, jax_solve3d, rhs, to_port)
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 N = 16
 SHARDS = [1, 4]

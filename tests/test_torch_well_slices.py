@@ -28,6 +28,7 @@ from raptor_tpu_torch.device import kernels  # noqa: E402
 from raptor_tpu_torch.device import par as tpar  # noqa: E402
 
 from _torch_parity import jax_hierarchy3d, to_port  # noqa: E402
+from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
 LANE = 128
 SL = tfmt.WELL_SLICE
