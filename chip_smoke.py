@@ -117,7 +117,22 @@ exit code and no result line:
    level after a common 1e-14 drop. (d) one float64 V-cycle of a 64^2
    ``from_spmd`` hierarchy on the card and on the CPU: equal to 1e-12 of
    max |x|. Its seconds and a JSON summary line (``phase15``) come before
-   the kernel list.
+   the kernel list;
+16. the setup over real OS processes and the device solve with one
+   controller per shard (``comm.launch.run_controllers``: 8 interpreters
+   on the one card, each ``comm.bootstrap.init`` with gloo, whose
+   collectives go through the host). (a) 15a's problem: each controller
+   builds only its own rows, runs ``spmd_rs_setup`` over its
+   ``SocketGroup`` and ``from_spmd`` with its ``DeviceComm``, and refines
+   the float32 Chebyshev(3) hierarchy to 1e-8 with b = A 1: 15a's level
+   sizes, operators and P (within 1e-12), 15a's refinements, the host
+   residual below 1e-8, DIA and BDIA launched by every controller (their
+   counts summed into the kernel list's ``2d_mc``); per controller the
+   setup and pack seconds, one V-cycle's device and enqueue ms and its
+   launches. (b) one float64 V-cycle of a 64^2 hierarchy on two
+   controllers, on the card and on the CPU: equal to 1e-12 of max |x|.
+   Its seconds and a JSON summary line (``phase16``) come before the
+   kernel list.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -1991,7 +2006,8 @@ def spmd_bridge(torch, ml, A, dist, kernels, by_path):
     sizes those of 14b's setup_mode="distributed" hierarchy (``ml``), packed
     by ``DeviceHierarchy.from_spmd`` with the plain exchange and with TAP
     on every level; each refined to 1e-8 with b = A 1 in 14b's refinements
-    (``dist``), vector_local equal to vector."""
+    (``dist``), vector_local equal to vector. Returns (summary, the
+    per-rank hierarchy), which phase 16 holds its controllers to."""
     from raptor_tpu_torch.comm.spmd import spmd_rs_setup
     from raptor_tpu_torch.comm.transport import InProcessTransport
     from raptor_tpu_torch.core.types import RelaxType
@@ -2041,7 +2057,7 @@ def spmd_bridge(torch, ml, A, dist, kernels, by_path):
     for label, c in compare_cycles(torch, kept, b, kernels).items():
         out[label].update(c)
     print_cycles(f"SPMD bridge {n}^2", {k: out[k] for k in kept})
-    return out
+    return out, hier
 
 
 def spmd_sa(torch, kernels, by_path):
@@ -2209,6 +2225,202 @@ def spmd_reference_check(torch, n=SPMD_CPU_N):
         raise AssertionError(f"from_spmd V-cycle: card and CPU differ by "
                              f"{err}")
     return err
+
+
+# phase 16: the setup over real OS processes and the device solve with one
+# controller per shard (``comm.launch.run_controllers``: MC_CONTROLLERS
+# interpreters on the one card, gloo, ``comm.bootstrap``), 15a's problem,
+# setup and solve; then a small cycle on the card against the CPU
+MC_CONTROLLERS = TAP_LAYOUT[0] * TAP_LAYOUT[1]
+MC_CPU = (64, 2)      # 16b: side and controllers of the card-vs-CPU cycle
+MC_TIMEOUT = 600
+
+
+def mc_rows(n, world, rank):
+    """One controller's rows of the n x n flagship problem: the rows of
+    ``par_stencil_grid``'s shard ``rank`` of ``world``, built from the
+    stencil and the rest dropped (the JAX package's tests/_mc_worker.py)."""
+    from raptor_tpu_torch.comm.transport import split_rows
+    from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+    from raptor_tpu_torch.core.partition import Partition
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, stencil_grid)
+    A = stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n))
+    part = Partition.create(n * n, n * n, world)
+    block = split_rows(A, part.row_bounds)[rank]
+    del A
+    return ParCSRMatrix.from_local_rows([block], part,
+                                        first_shard=rank), block
+
+
+def mc_setup(comm, n):
+    """A controller's ``spmd_rs_setup`` of its rows (HMIS + extended+i,
+    theta 0.25, the glibc weights) over its ``SocketGroup``; returns (the
+    hierarchy, the transport factory, its rows, seconds)."""
+    from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+    t0 = time.perf_counter()
+    a, block = mc_rows(n, comm.world, comm.rank)
+
+    def make_transport(m):
+        return MultiProcessTransport(comm.group, m)
+
+    hier = spmd_rs_setup(a, form_rand_weights(n * n, 0), make_transport)
+    return hier, make_transport, block, time.perf_counter() - t0
+
+
+def mc_controller(comm, n):
+    """16a, one controller: its setup, ``from_spmd`` with ``comm``
+    (float32 Chebyshev(3), lane pad 128), refinement to 1e-8 with
+    b = A 1 (its launches counted from zero just before it and read just
+    after), the host-recomputed residual, one V-cycle's device ms by CUDA
+    events, enqueue ms and launches; returns them with its level blocks
+    (A and P, global columns) for the parent to hold against 15a's."""
+    import torch
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device import kernels
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    hier, make_transport, block, setup_s = mc_setup(comm, n)
+    g = comm.group
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy.from_spmd(
+        hier, make_transport, relax_type=RelaxType.Chebyshev,
+        num_smooth_sweeps=3, dtype=torch.float32, lane_pad=128,
+        device=comm.device, comm=comm)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    b = block.to_scipy() @ np.ones(n * n)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    x, hist = dh.solve_mixed(np.zeros_like(b), b, tol=1e-8, max_iter=100)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    x_all = np.concatenate(g.allgather(x))
+    sums = np.sum(g.allgather(np.array(
+        [np.sum((b - block.to_scipy() @ x_all) ** 2), np.sum(b ** 2)])),
+        axis=0)
+    xd = dh.vector(np.zeros_like(b))
+    bd = dh.vector(b / np.sqrt(sums[1]))
+    kernels.reset_launches()
+    dh.vcycle(xd, bd)
+    torch.cuda.synchronize()
+    per_cycle = dict(kernels.LAUNCHES)
+    t1 = time.perf_counter()
+    dh.vcycle(xd, bd)
+    enqueue_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    # a cycle waits on about 80 host-staged collectives: 3 rounds suffice
+    cycle_ms = time_ms(torch, lambda: dh.vcycle(xd, bd), reps=3, warm=1)
+    return {
+        "rank": comm.rank, "setup_s": setup_s, "pack_s": pack_s,
+        "solve_s": solve_s, "refinements": len(hist) - 1,
+        "res": float(hist[-1]), "relres": float(np.sqrt(sums[0] / sums[1])),
+        "finite": bool(np.isfinite(x).all()), "launches": launches,
+        "launches_per_vcycle": per_cycle, "vcycle_ms": cycle_ms,
+        "vcycle_enqueue_ms": enqueue_ms,
+        "levels": [lvl.A.global_num_rows for lvl in dh.levels],
+        "formats": dh.format_summary(),
+        "a_blocks": [lvl.a_local.shards()[0].global_cols_csr(
+            lvl.a_local.partition.global_num_cols) for lvl in hier.levels],
+        "p_blocks": [lvl.p_block for lvl in hier.levels[:-1]]}
+
+
+def mc_cycle(comm, n):
+    """16b, one controller: one float64 V-cycle of its n x n from_spmd
+    hierarchy on its device and on the CPU (lane pad 128 on both), b =
+    A 1 from zero; returns its rows of both."""
+    import torch
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    hier, make_transport, block, _ = mc_setup(comm, n)
+    b = block.to_scipy() @ np.ones(n * n)
+    out = {}
+    for dev in (comm.device, torch.device("cpu")):
+        dh = DeviceHierarchy.from_spmd(
+            hier, make_transport, relax_type=RelaxType.Chebyshev,
+            num_smooth_sweeps=3, lane_pad=128, device=dev, comm=comm)
+        out[dev.type] = dh.host(dh.vcycle(dh.vector(np.zeros_like(b)),
+                                          dh.vector(b)))
+    return out
+
+
+def multi_controller(torch, hier15, bridge, kernels, by_path,
+                     device="cuda"):
+    """16: 15a's problem on MC_CONTROLLERS controllers of the one card,
+    each holding its shard's rows only (``mc_controller``): 15a's levels
+    and operators (within SPMD_TOL), its refinements, the host residual
+    below 1e-8, DIA and BDIA launched by every controller; their launches
+    summed into ``by_path["2d_mc"]``. Then ``mc_cycle`` on MC_CPU's two
+    controllers: card and CPU within CARD_CPU_TOL of max |x|."""
+    from raptor_tpu_torch.comm.launch import run_controllers
+    n = bridge["n"]
+    world = MC_CONTROLLERS
+    t0 = time.perf_counter()
+    res = run_controllers(world, "chip_smoke:mc_controller", (n,),
+                          device=device, timeout=MC_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    levels = res[0]["levels"]
+    worst = max(
+        spmd_levels_close(f"{world} controllers {n}^2",
+                          [lvl.a_local.assemble_global()
+                           for lvl in hier15.levels],
+                          [stacked([r["a_blocks"][i] for r in res])
+                           for i in range(len(levels))]),
+        spmd_levels_close(f"{world} controllers {n}^2 P",
+                          [stacked(lvl.p_blocks)
+                           for lvl in hier15.levels[:-1]],
+                          [stacked([r["p_blocks"][i] for r in res])
+                           for i in range(len(levels) - 1)]))
+    want = bridge["plain"]["refinements"]
+    names = list(res[0]["launches"])
+    by_path["2d_mc"] = {k: sum(r["launches"][k] for r in res)
+                        for k in names}
+    ranks = []
+    for r in res:
+        print(f"  controller {r['rank']}: setup {r['setup_s']:.3f} s, pack "
+              f"{r['pack_s']:.3f} s, {r['refinements']} refinements to "
+              f"{r['res']:.3e} (host {r['relres']:.3e}) in "
+              f"{r['solve_s']:.3f} s; a cycle {r['vcycle_ms']:.3f} ms on the "
+              f"card, enqueue {r['vcycle_enqueue_ms']:.3f} ms; launches in "
+              f"the solve dia {r['launches']['dia_spmv']} bdia "
+              f"{r['launches']['bdia_spmv']}, a cycle "
+              f"{r['launches_per_vcycle']}", flush=True)
+        if (r["refinements"] != want or r["res"] > 1e-8
+                or r["relres"] > 1e-8 or not r["finite"]
+                or r["levels"] != levels):
+            raise AssertionError(f"controller {r['rank']}: "
+                                 f"{r['refinements']} refinements to "
+                                 f"{r['res']} (host {r['relres']}), 15a's "
+                                 f"{want}")
+        require_launches(f"controller {r['rank']}", r["launches"])
+        ranks.append({k: v for k, v in r.items()
+                      if k not in ("a_blocks", "p_blocks")})
+    print("\n".join(res[0]["formats"]))
+    print(f"{world} controllers {n}^2: levels {levels}, 15a's within "
+          f"{worst:.3e}, {want} refinements as 15a; launches "
+          f"{by_path['2d_mc']}; {wall_s:.3f} s", flush=True)
+    cpu_n, cpu_world = MC_CPU
+    t0 = time.perf_counter()
+    cyc = run_controllers(cpu_world, "chip_smoke:mc_cycle", (cpu_n,),
+                          device=device, timeout=MC_TIMEOUT)
+    card = np.concatenate([c[torch.device(device).type] for c in cyc])
+    cpu = np.concatenate([c["cpu"] for c in cyc])
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print(f"reference: {cpu_n}^2 on {cpu_world} controllers, one float64 "
+          f"V-cycle, card against CPU {err:.3e} of max |x| "
+          f"({time.perf_counter() - t0:.3f} s)")
+    if not err <= CARD_CPU_TOL:
+        raise AssertionError(f"{cpu_world} controllers: card and CPU "
+                             f"differ by {err}")
+    return {"n": n, "controllers": world, "levels": levels,
+            "setup_rel_diff": worst, "refinements": want,
+            "launches": by_path["2d_mc"],
+            "launches_per_vcycle": {
+                k: sum(r["launches_per_vcycle"][k] for r in res)
+                for k in names},
+            "ranks": ranks, "run_s": wall_s, "card_cpu_rel_err": err}
 
 
 def main(argv=None):
@@ -2486,8 +2698,8 @@ def main(argv=None):
     # 15. the SPMD bridge on 14b's problem, the distributed SA and blocked
     # setups, and the bridge's cycle on the card against the CPU
     t0 = time.perf_counter()
-    summary_spmd = {"bridge": spmd_bridge(torch, ml14, A14, dist, kernels,
-                                          by_path)}
+    bridge, hier15 = spmd_bridge(torch, ml14, A14, dist, kernels, by_path)
+    summary_spmd = {"bridge": bridge}
     del ml14, A14
     torch.cuda.empty_cache()
     summary_spmd["sa"] = spmd_sa(torch, kernels, by_path)
@@ -2496,6 +2708,14 @@ def main(argv=None):
     summary_spmd["seconds"] = time.perf_counter() - t0
     print(json.dumps({"phase15": summary_spmd}))
     phase("distributed SA and blocked setups, the SPMD bridge", t0)
+
+    # 16. the setup over real processes and one controller per shard
+    t0 = time.perf_counter()
+    summary_mc = multi_controller(torch, hier15, bridge, kernels, by_path)
+    del hier15
+    summary_mc["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase16": summary_mc}))
+    phase("the setup over processes, one controller per shard", t0)
 
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
@@ -2536,7 +2756,8 @@ def main(argv=None):
                     "launches_per_vcycle"][name],
                 "3d_sa_spmd": summary_spmd["sa"]["launches_per_vcycle"][name],
                 "2d_bsr_dist": summary_spmd["bsr"]["launches_per_vcycle"][
-                    name]},
+                    name],
+                "2d_mc": summary_mc["launches_per_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -2560,6 +2781,7 @@ def main(argv=None):
                       "2d_sor_krylov": summaryk, "sa": summary_sa,
                       "bsr": summary_bsr, "setup_on_card": summary_card,
                       "tap": summary_tap, "spmd": summary_spmd,
+                      "mc": summary_mc,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

@@ -26,8 +26,12 @@ bit-identical hierarchies.
   hierarchy rank-locally from a local-view ``ParCSRMatrix``
   (``spmd_rs_setup``, ``spmd_sa_setup``, ``spmd_bsr_setup``), and
   ``DeviceHierarchy.from_spmd`` packs it for the device solve through the
-  transport (``vector_local`` places per-rank vectors). One card holds
-  every shard; several controllers are ROADMAP Queue 1 item 17.
+  transport (``vector_local`` places per-rank vectors). Over real
+  processes the setup runs on ``comm.multiproc.MultiProcessTransport``
+  (``ProcessGroup`` or the TCP ``comm.netgroup.SocketGroup``), and with
+  one controller per shard (``comm.bootstrap.init``, started by
+  ``comm.launch.run_controllers``) ``from_spmd(..., comm=comm)`` solves
+  across the controllers over ``torch.distributed`` (gloo).
 - **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
   packs every level into stacked-shard ``[S, ...]`` tensors
   (``device.par.device_put_matrix``) and runs V-cycles with any smoother

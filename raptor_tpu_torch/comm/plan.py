@@ -11,9 +11,11 @@ static index arrays:
   (reduction) exchange.
 
 On stacked shards the exchange is a gather, a transpose of the
-``[S_src, S_dst, Q]`` send buffer and a gather (``device.par``).
-``build_comm_plan`` sees every shard; ``build_comm_plan_spmd`` builds the
-same plan rank-locally over a transport.
+``[S_src, S_dst, Q]`` send buffer and a gather (``device.par``); across
+controllers, one shard each, the transpose is an all-to-all of a
+controller's ``[S_dst, Q]`` row. ``build_comm_plan`` sees every shard;
+``build_comm_plan_spmd`` builds the same plan rank-locally over a
+transport, for the view's shards.
 """
 
 from __future__ import annotations

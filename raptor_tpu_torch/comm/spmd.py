@@ -14,8 +14,10 @@ coarsest operator (at most ``max_coarse`` rows) is allgathered and
 LU-factored on every rank (duplicate_coarse, par_multilevel.hpp:223-333).
 
 ``multilevel.device_hierarchy.DeviceHierarchy.from_spmd`` packs the
-result for the device solve. The in-process transport is the one the
-port runs; a transport over several processes is ROADMAP Queue 1 item 17.
+result for the device solve. ``make_transport`` binds the rank's
+communication: ``comm.transport.InProcessTransport`` (every shard in one
+process) or ``comm.multiproc.MultiProcessTransport`` (one shard per
+process, over a ``ProcessGroup`` or a ``comm.netgroup.SocketGroup``).
 """
 
 from __future__ import annotations
@@ -103,7 +105,7 @@ def spmd_rs_setup(a_local: ParCSRMatrix, weights: np.ndarray,
 
     ``a_local``: this rank's local-view fine matrix. ``weights``:
     replicated random weights. ``make_transport(matrix) -> Transport``
-    binds the rank's communication context (``InProcessTransport``)."""
+    binds the rank's communication context (module docstring)."""
     levels: List[SpmdLevel] = []
     a = a_local
     for _ in range(max_levels - 1):

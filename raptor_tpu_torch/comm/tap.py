@@ -35,7 +35,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from raptor_tpu_torch.comm.transport import check_all_local
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device.formats import _scatter_add, _take
 
@@ -294,12 +293,17 @@ def device_put_tap(plan: TAPPlanHost, dtype: torch.dtype,
     ``device.par.resolve_device`` does for a hierarchy). With a transport
     (``tr``) every controller holds the same global plan (built from the
     allgathered column maps) and uploads the slices of its shards
-    ``[first_shard, first_shard + n_local)``; the card holds the whole
-    stack, so they must be every shard (``check_all_local``)."""
+    ``[first_shard, first_shard + n_local)``. The exchange transposes the
+    stacked buffer, so they must be every shard: TAP across controllers
+    is ROADMAP Queue 1 item 18, and a view of fewer shards raises."""
     if tr is not None:
         S = plan.H * plan.L
-        check_all_local(S if n_local is None else n_local, S, first_shard,
-                        "device_put_tap")
+        n_local = S if n_local is None else n_local
+        if first_shard != 0 or n_local != S:
+            raise NotImplementedError(
+                f"device_put_tap: the view holds shards [{first_shard}, "
+                f"{first_shard + n_local}) of {S}; the topology-aware "
+                f"exchange across controllers is ROADMAP Queue 1 item 18")
 
     def conv(x):
         x = np.asarray(x)

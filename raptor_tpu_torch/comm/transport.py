@@ -31,10 +31,8 @@ and returned hold one entry per shard OWNED BY THIS PROCESS.
 ``InProcessTransport`` owns every shard in one process (exact and
 deterministic). No implementation ever touches a global matrix: matrix
 data flows only as per-shard row blocks.
-
-The device side stacks every shard on one card, so a packer fed through a
-transport needs a view that holds every shard (``check_all_local``); one
-controller per shard group is ROADMAP Queue 1 item 17.
+``comm.multiproc.MultiProcessTransport`` runs the same primitives over
+real OS processes, one shard per rank.
 """
 
 from __future__ import annotations
@@ -44,19 +42,6 @@ from typing import List, Optional, Sequence
 import numpy as np
 
 from raptor_tpu_torch.core.matrix import CSRMatrix
-
-
-def check_all_local(n_local: int, n_shards: int, first_shard: int,
-                    what: str) -> None:
-    """Raise unless a local view of ``n_local`` shards from
-    ``first_shard`` holds all ``n_shards``: the port stacks every shard on
-    one card and never uploads part of a stack."""
-    if first_shard != 0 or n_local != n_shards:
-        raise NotImplementedError(
-            f"{what}: the view holds shards [{first_shard}, "
-            f"{first_shard + n_local}) of {n_shards}; one controller per "
-            f"shard group (a partial stack on each card) waits for ROADMAP "
-            f"Queue 1 item 17")
 
 
 def _owner_of(ids: np.ndarray, bounds: np.ndarray) -> np.ndarray:

@@ -33,9 +33,16 @@ goes through a hand-written CUDA kernel (``device.kernels``).
 Given a transport (``tr``), the packer takes its pads, widths and format
 statistics from the transport's allgathers and its halo plan from the
 rank-local handshake (``comm.plan.build_comm_plan_spmd``), as the JAX
-package's SPMD path does; the view must hold every shard
-(``comm.transport.check_all_local``), which gives the same stacked
-tensors as ``tr=None``.
+package's SPMD path does. A view of every shard gives the same stacked
+tensors as ``tr=None``. A view of some shards (one controller's, over a
+transport across processes) packs only those: the leading axis of every
+array is then the view's shards, while the halo plan's second axis and
+every pad stay global, so the packed rows equal the full stack's.
+
+Across controllers (one shard each) the matrix carries the controller's
+``comm.bootstrap.DeviceComm`` (``comm``): the halo exchange's transpose
+of the send buffer becomes ``comm.all_to_all`` and the inner products
+``comm.all_reduce_sum``. ``comm=None`` keeps every shard on one device.
 """
 
 from __future__ import annotations
@@ -50,7 +57,6 @@ import torch.nn.functional as F
 from raptor_tpu_torch.comm.plan import (
     CommPlan, build_comm_plan, build_comm_plan_spmd)
 from raptor_tpu_torch.comm.tap import tap_halo_exchange, tap_halo_exchange_T
-from raptor_tpu_torch.comm.transport import check_all_local
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.device import kernels
@@ -172,9 +178,12 @@ class DeviceParCSR:
     has_t: bool              # transpose path available
     global_num_rows: int
     global_num_cols: int
+    comm: Optional[object] = None   # DeviceComm across controllers
 
     @property
     def n_shards(self) -> int:
+        """The shards this device holds: every shard, or one controller's
+        one shard when ``comm`` is set."""
         return self.on_cols.shape[0]
 
     @property
@@ -324,7 +333,7 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
                       force_format: Optional[str] = None,
                       embed: Optional[str] = None,
                       need_transpose: bool = True,
-                      device="cuda", tr=None) -> DeviceParCSR:
+                      device="cuda", tr=None, comm=None) -> DeviceParCSR:
     """Pack a host ParCSRMatrix into the stacked-shard device plan.
 
     ``embed`` ("cols" for P, "rows" for P^T) moves a transfer operator's
@@ -336,18 +345,25 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
     rounds the padded row/col/halo sizes (128 on CUDA, as the TPU does,
     makes the TPU's DIA/BDIA picks). ``tr`` (a ``comm.Transport``): ``a``
     may be a local view, and every statistic is agreed through the
-    transport (module docstring)."""
+    transport (module docstring). ``comm`` (a ``DeviceComm``): the
+    matrix's exchanges run across controllers; ``a`` is then this
+    controller's view of its one shard, packed through ``tr``."""
     if force_format not in (None,) + FORMATS:
         raise ValueError(f"force_format={force_format!r}; the port packs "
                          f"{FORMATS} or chooses itself (None)")
     dev = resolve_device(device)
     part = a.partition
-    S = part.n_shards
     shards = a.shards()
+    S = len(shards)         # the leading axis: the shards of this view
+    if comm is not None and (tr is None or S != 1
+                             or comm.world != part.n_shards):
+        raise ValueError(
+            f"device_put_matrix: across {comm.world} controllers a matrix "
+            f"of {part.n_shards} shards packs one shard a controller "
+            f"through a transport, not {S}")
     if tr is None:
         plan: CommPlan = build_comm_plan(a, lane_pad=lane_pad)
     else:
-        check_all_local(len(shards), S, a.first_shard, "device_put_matrix")
         plan = build_comm_plan_spmd(a, tr, lane_pad=lane_pad)
     npdt = _np_dtype(dtype)
     itemsize = npdt.itemsize
@@ -663,33 +679,45 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         has_t=not (fmt in ("bdia", "bell") and not need_transpose),
         global_num_rows=part.global_num_rows,
         global_num_cols=part.global_num_cols,
+        comm=comm,
     )
 
 
 # --- vectors -----------------------------------------------------------------
 
 def device_put_vector(x: np.ndarray, bounds: np.ndarray, pad: int,
-                      dtype=torch.float64, device="cuda") -> torch.Tensor:
-    """Global host vector -> padded [S, pad] device tensor."""
+                      dtype=torch.float64, device="cuda",
+                      first_shard: int = 0,
+                      n_local: Optional[int] = None) -> torch.Tensor:
+    """Host vector -> padded [S_local, pad] device tensor of the shards
+    ``[first_shard, first_shard + n_local)`` (default: every shard), whose
+    rows ``x`` holds, in order."""
     S = len(bounds) - 1
-    out = np.zeros((S, pad), dtype=np.float64)
-    for s in range(S):
-        out[s, :int(bounds[s + 1] - bounds[s])] = x[bounds[s]:bounds[s + 1]]
+    n_local = S - first_shard if n_local is None else n_local
+    r0 = int(bounds[first_shard])
+    if len(x) != int(bounds[first_shard + n_local]) - r0:
+        raise ValueError(f"{len(x)} values for the rows of shards "
+                         f"[{first_shard}, {first_shard + n_local})")
+    out = np.zeros((n_local, pad), dtype=np.float64)
+    for i in range(n_local):
+        a, b = int(bounds[first_shard + i]), int(bounds[first_shard + i + 1])
+        out[i, :b - a] = x[a - r0:b - r0]
     return torch.from_numpy(out).to(resolve_device(device), dtype)
 
 
 def put_stacked(staged: dict, n_shards: int, device, dtype=None,
                 first_shard: int = 0) -> dict:
     """Upload a dict of [S_local, ...] host arrays whose leading axis is
-    the shards ``first_shard`` onward (the JAX package's placement of each
-    shard on its device): float arrays in ``dtype``, integer ones as
-    int64. The card holds the whole stack, so the arrays must cover every
-    shard (``check_all_local``)."""
+    the shards ``first_shard`` onward of ``n_shards`` (the JAX package's
+    placement of each shard on its device; a controller uploads its own
+    part of the stack): float arrays in ``dtype``, integer ones as int64."""
     dev = resolve_device(device)
     out = {}
     for k, arr in staged.items():
         arr = np.ascontiguousarray(arr)
-        check_all_local(arr.shape[0], n_shards, first_shard, k)
+        if first_shard + arr.shape[0] > n_shards:
+            raise ValueError(f"{k}: shards [{first_shard}, "
+                             f"{first_shard + arr.shape[0]}) of {n_shards}")
         t = torch.from_numpy(arr)
         out[k] = t.to(dev, torch.int64 if arr.dtype.kind in "iu" else dtype)
     return out
@@ -697,7 +725,7 @@ def put_stacked(staged: dict, n_shards: int, device, dtype=None,
 
 def put_replicated(x: np.ndarray, device, dtype=None) -> torch.Tensor:
     """A value every shard reads whole (the redundant coarse LU factors,
-    par_multilevel.hpp:223-333): one copy on the card."""
+    par_multilevel.hpp:223-333): one copy on each device."""
     return torch.from_numpy(np.ascontiguousarray(x)).to(
         resolve_device(device), dtype)
 
@@ -706,7 +734,7 @@ def device_put_vector_local(x_locals, bounds: np.ndarray, pad: int,
                             dtype=torch.float64, device="cuda",
                             first_shard: int = 0) -> torch.Tensor:
     """Per-rank vector placement: ``x_locals`` holds one slice a LOCAL
-    shard, from ``first_shard`` on; they must cover every shard."""
+    shard, from ``first_shard`` on."""
     out = np.zeros((len(x_locals), pad), dtype=np.float64)
     for i, xl in enumerate(x_locals):
         s = first_shard + i
@@ -718,22 +746,28 @@ def device_put_vector_local(x_locals, bounds: np.ndarray, pad: int,
                        first_shard)["v"]
 
 
-def host_vector(x: torch.Tensor, bounds: np.ndarray) -> np.ndarray:
-    """Padded [S, pad] tensor -> global host vector."""
+def host_vector(x: torch.Tensor, bounds: np.ndarray,
+                first_shard: int = 0) -> np.ndarray:
+    """Padded [S_local, pad] tensor of the shards ``first_shard`` onward ->
+    their rows as one host vector (every row when it holds every shard)."""
     x = x.detach().cpu().numpy()
-    return np.concatenate([x[s, :int(bounds[s + 1] - bounds[s])]
-                           for s in range(x.shape[0])])
+    return np.concatenate([
+        x[i, :int(bounds[first_shard + i + 1] - bounds[first_shard + i])]
+        for i in range(x.shape[0])])
 
 
 # --- shard-batched operators ---------------------------------------------------
 
 def halo_exchange(A: DeviceParCSR, x: torch.Tensor) -> torch.Tensor:
     """Forward halo exchange: local x [S, C] -> halo values [S, H]
-    (ParComm::communicate, core/comm_pkg.hpp:631-652)."""
-    S = A.n_shards
+    (ParComm::communicate, core/comm_pkg.hpp:631-652). Across controllers
+    the send buffer's rows go to their ranks by ``comm.all_to_all``."""
     send = _take(x, A.send_idx)                      # [S_src, S_dst, Q]
-    recv = send.transpose(0, 1).reshape(S, -1)       # [S_dst, S_src * Q]
-    return torch.gather(recv, 1, A.halo_src)
+    if A.comm is not None:                           # S_src = 1 a controller
+        recv = A.comm.all_to_all(send[0]).reshape(1, -1)
+    else:
+        recv = send.transpose(0, 1).reshape(A.n_shards, -1)
+    return torch.gather(recv, 1, A.halo_src)         # [S_dst, S_src * Q]
 
 
 def halo_exchange_T(A: DeviceParCSR, halo_vals: torch.Tensor,
@@ -742,7 +776,10 @@ def halo_exchange_T(A: DeviceParCSR, halo_vals: torch.Tensor,
     added back at the owning shard's local cols [S, n_out]
     (ParComm::communicate_T, core/comm_pkg.hpp:756-800)."""
     buf = _take(halo_vals, A.slot_to_halo) * A.recv_mask   # [S_r, S_o, Q]
-    back = buf.transpose(0, 1) * A.send_mask               # [S_o, S_r, Q]
+    if A.comm is not None:
+        back = A.comm.all_to_all(buf[0])[None] * A.send_mask
+    else:
+        back = buf.transpose(0, 1) * A.send_mask           # [S_o, S_r, Q]
     return _scatter_add(n_out, A.send_idx, back)
 
 
@@ -851,11 +888,12 @@ def shard_dots(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return (x * y).sum(dim=1)
 
 
-def dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def dot(x: torch.Tensor, y: torch.Tensor, comm=None) -> torch.Tensor:
     """Global inner product (par_vector.cpp:101): the local dots, summed
-    over the shards."""
-    return shard_dots(x, y).sum()
+    over the shards, and over the controllers by ``comm`` when given."""
+    d = shard_dots(x, y).sum()
+    return d if comm is None else comm.all_reduce_sum(d)
 
 
-def norm(x: torch.Tensor) -> torch.Tensor:
-    return torch.sqrt(dot(x, x))
+def norm(x: torch.Tensor, comm=None) -> torch.Tensor:
+    return torch.sqrt(dot(x, x, comm))

@@ -38,7 +38,6 @@ import scipy.sparse as sp
 import torch
 
 from raptor_tpu_torch import native
-from raptor_tpu_torch.comm.transport import check_all_local
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.types import ZERO_TOL
@@ -205,12 +204,10 @@ def build_relax(a: ParCSRMatrix, dA: DeviceParCSR,
     triangular sweeps and L/U ELL blocks (SOR/SSOR/Jacobi row sums),
     "color" the greedy colouring masks (multicolour GS). Chebyshev and
     l1-Jacobi need neither, which saves O(nnz)-scale arrays per level.
-    ``tr``: ``a`` may be a local view of every shard, and the pads are
-    agreed through the transport, as ``device_put_matrix`` does."""
+    ``tr``: ``a`` may be a local view, of every shard or of one
+    controller's, and the pads are agreed through the transport, as
+    ``device_put_matrix`` does; the plan holds the view's shards."""
     shards = a.shards()
-    if tr is not None:
-        check_all_local(len(shards), a.n_shards, a.first_shard,
-                        "build_relax")
     S = len(shards)
     R = dA.rows_pad
     need_tri = "tri" in need

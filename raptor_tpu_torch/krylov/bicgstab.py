@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from raptor_tpu_torch.device.par import DeviceParCSR, shard_dots, spmv
-from raptor_tpu_torch.krylov.cg import Precond, default_max_iter
+from raptor_tpu_torch.krylov.cg import (Precond, default_max_iter,
+                                       require_one_device)
 
 
 class BiCGStabResult(NamedTuple):
@@ -66,6 +67,7 @@ def bicgstab(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
              partial: bool = False) -> BiCGStabResult:
     """``precond`` is ``DeviceHierarchy.precond_pack()``; ``inner_mode``
     and ``norm_mode`` are "psum" or "sequential"."""
+    require_one_device(A, "bicgstab")
     if max_iter is None:
         max_iter = default_max_iter(A)
     inner = _inner_fn(A, inner_mode, partial)

@@ -39,6 +39,15 @@ class CGResult(NamedTuple):
     indefinite: bool
 
 
+def require_one_device(A: DeviceParCSR, what: str) -> None:
+    """Raise for a matrix whose shards lie on several controllers: the
+    Krylov solvers' inner products run on one device's stack."""
+    if A.comm is not None:
+        raise NotImplementedError(
+            f"{what} across {A.comm.world} controllers: the Krylov solvers "
+            f"across controllers are ROADMAP Queue 1 item 22")
+
+
 def default_max_iter(A: DeviceParCSR) -> int:
     """The reference's default iteration cap, 1.3 n + 2."""
     return int(1.3 * A.global_num_rows) + 2
@@ -51,6 +60,7 @@ def cg(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
     """Global CG solve on stacked [S, R] vectors. ``precond``, if given,
     is ``DeviceHierarchy.precond_pack()``: this is PCG
     (par_cg.cpp:121-239)."""
+    require_one_device(A, "cg")
     if max_iter is None:
         max_iter = default_max_iter(A)
     b_norm = torch.sqrt(dot(b, b))

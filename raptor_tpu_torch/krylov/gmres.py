@@ -28,7 +28,8 @@ import scipy.linalg
 import torch
 
 from raptor_tpu_torch.device.par import DeviceParCSR, dot, spmv
-from raptor_tpu_torch.krylov.cg import Precond, default_max_iter
+from raptor_tpu_torch.krylov.cg import (Precond, default_max_iter,
+                                       require_one_device)
 
 
 class GMRESResult(NamedTuple):
@@ -50,6 +51,7 @@ def gmres(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
     """Global restarted GMRES(m) solve. ``precond``, if given, is
     ``DeviceHierarchy.precond_pack()``: AMG-preconditioned GMRES. The
     Arnoldi basis costs ``restart + 1`` vectors of device memory."""
+    require_one_device(A, "gmres")
     if max_iter is None:
         max_iter = default_max_iter(A)
     m = restart

@@ -410,6 +410,12 @@ class BSRDeviceHierarchy:
     def __init__(self, ml: ParBSRRugeStubenSolver, dtype=torch.float64,
                  omega: float = 2.0 / 3.0, sweeps: int = 2,
                  lane_pad: int = None, device="cuda"):
+        if ml.levels[0].A.is_local_view:
+            raise NotImplementedError(
+                "BSRDeviceHierarchy packs the global blocked operators; a "
+                "local view (one controller's setup, comm.spmd."
+                "spmd_bsr_setup) and the blocked solve across controllers "
+                "are ROADMAP Queue 1 item 22")
         if ml.tap_amg >= 0:
             raise NotImplementedError(
                 f"tap_amg = {ml.tap_amg}: the blocked V-cycle has no "

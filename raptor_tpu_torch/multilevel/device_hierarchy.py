@@ -19,7 +19,14 @@ operators keep the plain exchange, as in the JAX package.
 ``DeviceHierarchy.from_spmd`` builds the same device plan from a per-rank
 whole-hierarchy setup (``comm.spmd``): it packs each level's local view
 through the transport and forms P^T by the distributed transpose, with no
-global matrix, and then solves as the in-process route does.
+global matrix, and then solves as the in-process route does. Given a
+``comm.bootstrap.DeviceComm`` (one controller per shard, the setup over
+``comm.multiproc.MultiProcessTransport``), each controller packs and
+solves only its shard: the halo exchanges are ``comm.all_to_all``, the
+norms ``comm.all_reduce_sum``, and the coarse solve gathers the coarse
+right-hand side with ``comm.all_gather`` and solves the whole (replicated)
+coarse system on every controller, keeping its own rows. The host vectors
+such a hierarchy takes and gives hold the controller's rows only.
 """
 
 from __future__ import annotations
@@ -151,15 +158,24 @@ class DeviceHierarchy:
         self.row_bounds = ml.levels[0].A.partition.row_bounds
         self.rows_pad = self.levels[0].A.rows_pad
         self._fine_A = ml.levels[0].A
+        self.first_shard = 0
         self._tr_factory = None
 
     def _set_knobs(self, device, mesh, n_shards, tap_amg, lane_pad, dtype,
-                   relax_type, sweeps, weight, solve_tol, max_iterations):
+                   relax_type, sweeps, weight, solve_tol, max_iterations,
+                   comm=None):
         """The solve's knobs, shared by both constructions: the device,
         the (host, local) layout that ``tap_amg >= 0`` needs, the lane
-        padding (128 on CUDA, 1 elsewhere by default) and the smoother."""
+        padding (128 on CUDA, 1 elsewhere by default), the smoother and
+        the controllers' ``comm`` (None: every shard on one device)."""
         self.device = dpar.resolve_device(device)
+        self.comm = comm
         self.tap_amg = tap_amg
+        if comm is not None and tap_amg >= 0:
+            raise NotImplementedError(
+                f"tap_amg = {tap_amg} across {comm.world} controllers: the "
+                f"topology-aware exchange across controllers is ROADMAP "
+                f"Queue 1 item 18; set tap_amg = -1")
         if tap_amg >= 0 and not (isinstance(mesh, dpar.Mesh2)
                                  and mesh.n_shards == n_shards):
             raise ValueError(
@@ -190,8 +206,8 @@ class DeviceHierarchy:
                   num_smooth_sweeps: int = 1, relax_weight: float = 1.0,
                   solve_tol: float = 1e-7, max_iterations: int = 100,
                   dtype=torch.float64, lane_pad: int = None,
-                  device="cuda", mesh=None,
-                  tap_amg: int = -1) -> "DeviceHierarchy":
+                  device="cuda", mesh=None, tap_amg: int = -1,
+                  comm=None) -> "DeviceHierarchy":
         """The device plan of a per-rank ``comm.spmd.SpmdHierarchy``: each
         level's local view packed through ``make_transport(matrix)`` (pads
         and formats agreed over the transport, the halo plan from the
@@ -200,21 +216,32 @@ class DeviceHierarchy:
         the in-process route reads from the setup (``relax_type``
         defaults to Chebyshev); ``lane_pad``, ``device`` and ``mesh`` as
         in the constructor, with ``tap_amg >= 0`` on ``mesh``'s layout.
-        The views must hold every shard (ROADMAP Queue 1 item 17 lifts
-        that)."""
+        The views hold every shard (``comm=None``, one device), or this
+        controller's one shard, with ``comm`` its ``DeviceComm`` and
+        ``make_transport`` a transport across the controllers (module
+        docstring); ``tap_amg >= 0`` across controllers raises (ROADMAP
+        Queue 1 item 18)."""
         self = cls.__new__(cls)
         self._set_knobs(device, mesh, hier.levels[0].a_local.n_shards,
                         tap_amg, lane_pad, dtype,
                         relax_type or RelaxType.Chebyshev, num_smooth_sweeps,
-                        relax_weight, solve_tol, max_iterations)
+                        relax_weight, solve_tol, max_iterations, comm)
         lane_pad = self.lane_pad
         self._tr_factory = make_transport
         self._fine_A = hier.levels[0].a_local
+        self.first_shard = self._fine_A.first_shard
+        if comm is None and len(self._fine_A.shards()) != \
+                self._fine_A.n_shards:
+            raise ValueError(
+                f"from_spmd: a view of {len(self._fine_A.shards())} of "
+                f"{self._fine_A.n_shards} shards exchanges across "
+                f"controllers: pass their comm (comm.bootstrap.init)")
 
         def put(m, tr, **kw):
             return device_put_matrix(m, dtype=dtype, lane_pad=lane_pad,
                                      need_transpose=False,
-                                     device=self.device, tr=tr, **kw)
+                                     device=self.device, tr=tr, comm=comm,
+                                     **kw)
 
         def tap_put(m, tr):
             """TAP plan of a local view: every rank's halo column maps,
@@ -306,7 +333,11 @@ class DeviceHierarchy:
     def coarse_solve(self, row_mask: torch.Tensor,
                      b: torch.Tensor) -> torch.Tensor:
         """Gather every shard's coarse rhs and solve densely
-        (par_multilevel.hpp:347-369)."""
+        (par_multilevel.hpp:347-369); across controllers each gathers
+        every controller's rows, solves the whole system and keeps its
+        own."""
+        if self.comm is not None:
+            b = self.comm.all_gather(b[0])          # [S, Rc]
         bvec = b.reshape(-1)[self.gather_idx]
         y = torch.linalg.lu_solve(self.lu, self.piv, bvec[:, None])[:, 0]
         return y[self.coarse_take] * row_mask
@@ -333,10 +364,10 @@ class DeviceHierarchy:
         x, b: stacked [S, R] device vectors (see ``vector``)."""
         A0, T0 = self.levels[0].A, self.levels[0].TA
         max_iter = self.max_iterations
-        b_norm = float(dpar.norm(b))
+        b_norm = float(dpar.norm(b, self.comm))
 
         def rel_norm(r):
-            n = float(dpar.norm(r))
+            n = float(dpar.norm(r, self.comm))
             return n / b_norm if abs(b_norm) > 1e-16 else n
 
         stall_ratio = float(self.stall_ratio)
@@ -363,6 +394,8 @@ class DeviceHierarchy:
                     return_device: bool = False):
         """Iterative refinement: float64 residuals against the fine A with
         this (typically float32) hierarchy's V-cycle as the correction.
+        ``x64`` and ``b64`` are host vectors (this controller's rows across
+        controllers).
 
         Returns (x, residual history): x as a float64 host vector, or as
         the stacked device tensor when ``return_device``."""
@@ -371,30 +404,29 @@ class DeviceHierarchy:
             self._dA64 = device_put_matrix(
                 a, dtype=torch.float64, lane_pad=self.lane_pad,
                 need_transpose=False, device=self.device,
-                tr=self._tr_factory(a) if self._tr_factory else None)
+                tr=self._tr_factory(a) if self._tr_factory else None,
+                comm=self.comm)
         dA64 = self._dA64
 
         def vec(v):
-            return dpar.device_put_vector(np.asarray(v, np.float64),
-                                          self.row_bounds, dA64.rows_pad,
-                                          dtype=torch.float64,
-                                          device=self.device)
+            return self._put(np.asarray(v, np.float64), dA64.rows_pad,
+                             torch.float64)
 
         x, b = vec(x64), vec(b64)
-        b_norm = float(dpar.norm(b))
+        b_norm = float(dpar.norm(b, self.comm))
         b_norm = b_norm if b_norm > 1e-300 else 1.0
         r = b - spmv(dA64, x)
-        hist = [float(dpar.norm(r)) / b_norm]
+        hist = [float(dpar.norm(r, self.comm)) / b_norm]
         while hist[-1] > tol and len(hist) <= max_iter:
             e = self.vcycle(torch.zeros_like(r, dtype=self.dtype),
                             r.to(self.dtype))
             x = x + e.to(torch.float64)
             r = b - spmv(dA64, x)
-            hist.append(float(dpar.norm(r)) / b_norm)
+            hist.append(float(dpar.norm(r, self.comm)) / b_norm)
         hist = np.asarray(hist)
         if return_device:
             return x, hist
-        return dpar.host_vector(x, self.row_bounds), hist
+        return self.host(x), hist
 
     # --- use as a Krylov preconditioner ----------------------------------------
     def precond_pack(self):
@@ -403,7 +435,12 @@ class DeviceHierarchy:
         par_bicgstab.cpp:240), cached on the hierarchy. The cycle runs in
         the hierarchy's dtype and the correction is cast back to
         ``r.dtype``, so a float64 Krylov loop can use a float32
-        hierarchy."""
+        hierarchy. Across controllers it raises: the Krylov solvers run on
+        one device (ROADMAP Queue 1 item 22)."""
+        if self.comm is not None:
+            raise NotImplementedError(
+                "precond_pack across controllers: the Krylov solvers across "
+                "controllers are ROADMAP Queue 1 item 22")
         if self._precond is None:
             def precond(x0: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                 return self.vcycle(x0.to(self.dtype),
@@ -412,16 +449,25 @@ class DeviceHierarchy:
         return self._precond
 
     # --- vector helpers ---------------------------------------------------------
+    def _put(self, v: np.ndarray, pad: int, dtype) -> torch.Tensor:
+        return dpar.device_put_vector(
+            v, self.row_bounds, pad, dtype=dtype, device=self.device,
+            first_shard=self.first_shard,
+            n_local=self.levels[0].A.n_shards)
+
     def vector(self, v: np.ndarray) -> torch.Tensor:
-        return dpar.device_put_vector(v, self.row_bounds, self.rows_pad,
-                                      dtype=self.dtype, device=self.device)
+        """A host vector on the fine level's shards: every row, or this
+        controller's rows across controllers."""
+        return self._put(v, self.rows_pad, self.dtype)
 
     def vector_local(self, x_locals) -> torch.Tensor:
         """Fine-level placement from this rank's shard slices (the SPMD
-        twin of ``vector``); they must cover every shard."""
+        twin of ``vector``)."""
         return dpar.device_put_vector_local(
             x_locals, self.row_bounds, self.rows_pad, dtype=self.dtype,
-            device=self.device, first_shard=self._fine_A.first_shard)
+            device=self.device, first_shard=self.first_shard)
 
     def host(self, v: torch.Tensor) -> np.ndarray:
-        return dpar.host_vector(v, self.row_bounds)
+        """The rows of a fine-level vector this device holds (every row,
+        or this controller's)."""
+        return dpar.host_vector(v, self.row_bounds, self.first_shard)

@@ -5,8 +5,8 @@ test_spmd_bridge.py): the rank-local halo plan
 ``DeviceHierarchy.from_spmd`` solving as JAX's ``from_spmd`` and as the
 port's in-process route (``setup_mode = "distributed"`` then
 ``DeviceHierarchy``), with the plain and the topology-aware exchange, and
-the per-rank vector placement. One card holds every shard: a local view
-of fewer shards raises (ROADMAP Queue 1 item 17).
+the per-rank vector placement. A rank's view of its one shard (threads
+over a queue group) packs that shard's rows of the full stack.
 
 The problems are JAX's: the rotated anisotropic diffusion on 40^2 (30^2
 for SA) and 24 x 12 Q1 plane-stress elasticity; float64, b = A 1.
@@ -34,11 +34,15 @@ from raptor_tpu.multilevel.device_hierarchy import (  # noqa: E402
 from raptor_tpu_torch.comm import plan as tplan  # noqa: E402
 from raptor_tpu_torch.comm import spmd as tspmd  # noqa: E402
 from raptor_tpu_torch.comm import tap as ttap  # noqa: E402
+from raptor_tpu_torch.comm.multiproc import (  # noqa: E402
+    MultiProcessTransport)
 from raptor_tpu_torch.comm.transport import (  # noqa: E402
     InProcessTransport as TIT, split_rows)
 from raptor_tpu_torch.core import types as tt  # noqa: E402
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix  # noqa: E402
+from raptor_tpu_torch.core.partition import Partition  # noqa: E402
 from raptor_tpu_torch.device import par as tpar  # noqa: E402
+from raptor_tpu_torch.device.relax import DeviceRelax as DeviceRelaxT  # noqa
 from raptor_tpu_torch.device.relax import build_relax  # noqa: E402
 from raptor_tpu_torch.gallery import stencils as tst  # noqa: E402
 from raptor_tpu_torch.gallery.fem import par_fem  # noqa: E402
@@ -49,6 +53,7 @@ from raptor_tpu_torch.multilevel.par_multilevel import (  # noqa: E402
     ParRugeStubenSolver as TRS)
 from raptor_tpu_torch.utils.glibc_rand import form_rand_weights  # noqa
 
+from _torch_mc import run_threads  # noqa: E402
 from _torch_parity import ANISO  # noqa: E402
 from _torch_parity import _one_intra_op_thread  # noqa: E402,F401
 
@@ -292,29 +297,107 @@ def test_from_spmd_tap_equals_plain_exchange():
         TDH.from_spmd(th, TIT, mesh=tpar.make_mesh2(2, 2), tap_amg=0, **kw)
 
 
-def test_partial_local_view_raises():
-    """A view of shards 2-3 of 4 (what a second controller would hold):
-    every packer of the bridge refuses it, naming item 17."""
+def _assert_rows(view, full, r, fields):
+    """A one-shard view's packed tensors equal rank r's rows of the full
+    stack's: every field (the offset lists and the scalars whole), the
+    list that a view pads to its own largest count (BDIA's tile planes)
+    up to its count."""
+    for f in fields:
+        got, want = getattr(view, f), getattr(full, f)
+        if not isinstance(want, torch.Tensor):
+            assert got == want, f
+        elif f in ("dia_off", "bd_off"):      # one list for every shard
+            assert torch.equal(got, want), f
+        elif f == "bd_tplane":
+            n = int(full.bd_tptr[r, -1])
+            assert int(view.bd_tptr[0, -1]) == n
+            assert torch.equal(got[:, :n], want[r:r + 1, :n]), f
+        else:
+            rows = want[:, r:r + 1] if f == "color_ok" else want[r:r + 1]
+            assert torch.equal(got, rows), f
+
+
+def _level_views(hier, rank):
+    """Rank ``rank``'s one-shard views of an SPMD hierarchy's A and P."""
+    out = []
+    for i, lvl in enumerate(hier.levels):
+        a = lvl.a_local
+        ncols = a.partition.global_num_cols
+        av = ParCSRMatrix.from_local_rows(
+            [a.shards()[rank].global_cols_csr(ncols)], a.partition,
+            first_shard=rank)
+        pv = None
+        if lvl.p_blocks is not None:
+            part = a.partition
+            cb = hier.levels[i + 1].a_local.partition.row_bounds
+            part_p = Partition(part.global_num_rows, int(cb[-1]),
+                                    part.n_shards, part.row_bounds, cb)
+            pv = ParCSRMatrix.from_local_rows([lvl.p_blocks[rank]], part_p,
+                                              first_shard=rank)
+            pfull = ParCSRMatrix.from_local_rows(lvl.p_blocks, part_p)
+            out.append((av, pv, a, pfull))
+        else:
+            out.append((av, None, a, None))
+    return out
+
+
+def test_partial_local_view_packs_its_rows():
+    """Each of 4 ranks (threads over a queue group, a
+    ``MultiProcessTransport`` each) packs only its own shard of every
+    level: the matrices (A with lane pads 1 and 128, P embedded), the
+    relaxation plans, ``put_stacked``, ``device_put_vector`` and
+    ``vector_local`` equal that rank's rows of the full stack's. The
+    topology-aware plan of a one-shard view raises, naming item 18."""
+    import dataclasses
+    th, _ = _rs("HMIS", "Extended", 4)
     tA, _, _ = _aniso(40, 4)
-    rows = split_rows(tA.global_csr, tA.partition.row_bounds)
-    view = ParCSRMatrix.from_local_rows(rows[2:], tA.partition,
-                                        first_shard=2)
-    tr = TIT(tA)
-    tr.first_shard, tr.S = 2, 2
-    item17 = "ROADMAP Queue 1 item 17"
-    with pytest.raises(NotImplementedError, match=item17):
-        tpar.device_put_matrix(view, device="cpu", tr=tr)
-    dA = tpar.device_put_matrix(tA, device="cpu")
-    with pytest.raises(NotImplementedError, match=item17):
-        build_relax(view, dA, need=(), tr=tr)
-    with pytest.raises(NotImplementedError, match=item17):
-        tpar.device_put_vector_local([np.ones(400)] * 2,
-                                     tA.partition.row_bounds, 400,
-                                     device="cpu", first_shard=2)
-    with pytest.raises(NotImplementedError, match=item17):
-        tpar.put_stacked({"ct": np.zeros((2, 8), dtype=np.int64)}, 4, "cpu",
-                         first_shard=2)
-    plan = ttap.build_tap_plan(tA, 2, 2)
-    with pytest.raises(NotImplementedError, match=item17):
-        ttap.device_put_tap(plan, torch.float64, torch.device("cpu"),
-                            tr=tr, first_shard=2, n_local=2)
+    b = tA.mult(np.ones(tA.global_num_rows))
+    rb = tA.partition.row_bounds
+
+    def pack(rank, group):
+        out = []
+        for av, pv, _, _ in _level_views(th, rank):
+            tr = MultiProcessTransport(group, av)
+            mats = [tpar.device_put_matrix(av, device="cpu", tr=tr,
+                                           lane_pad=lp) for lp in (1, 128)]
+            rx = build_relax(av, mats[0], need=("tri", "color"), tr=tr)
+            if pv is not None:
+                mats.append(tpar.device_put_matrix(
+                    pv, device="cpu", tr=MultiProcessTransport(group, pv),
+                    lane_pad=128, embed="cols"))
+            out.append((mats, rx))
+        with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+            ttap.device_put_tap(ttap.build_tap_plan(tA, 2, 2),
+                                torch.float64, torch.device("cpu"), tr=tr,
+                                first_shard=rank, n_local=1)
+        return out
+
+    packed = run_threads(4, pack)
+    mfields = [f.name for f in dataclasses.fields(tpar.DeviceParCSR)]
+    rfields = [f.name for f in dataclasses.fields(DeviceRelaxT)
+               if f.name not in ("fwd", "bwd")]
+    for r in range(4):
+        for (mats, rx), (_, _, a, pfull) in zip(packed[r],
+                                                _level_views(th, 0)):
+            full = [tpar.device_put_matrix(a, device="cpu", tr=TIT(a),
+                                           lane_pad=lp) for lp in (1, 128)]
+            if pfull is not None:
+                full.append(tpar.device_put_matrix(
+                    pfull, device="cpu", tr=TIT(pfull), lane_pad=128,
+                    embed="cols"))
+            for m, fm in zip(mats, full):
+                _assert_rows(m, fm, r, mfields)
+            _assert_rows(rx, build_relax(a, full[0], need=("tri", "color"),
+                                         tr=TIT(a)), r, rfields)
+        ct = np.arange(32, dtype=np.int64).reshape(4, 8)
+        assert torch.equal(
+            tpar.put_stacked({"ct": ct[r:r + 1]}, 4, "cpu",
+                             first_shard=r)["ct"],
+            tpar.put_stacked({"ct": ct}, 4, "cpu")["ct"][r:r + 1])
+        whole = tpar.device_put_vector(b, rb, 512, device="cpu")
+        mine = b[int(rb[r]):int(rb[r + 1])]
+        assert torch.equal(tpar.device_put_vector(
+            mine, rb, 512, device="cpu", first_shard=r, n_local=1),
+            whole[r:r + 1])
+        assert torch.equal(tpar.device_put_vector_local(
+            [mine], rb, 512, device="cpu", first_shard=r), whole[r:r + 1])

@@ -166,8 +166,7 @@ def test_tap_exchange_is_the_plain_exchange():
 
 def test_device_put_tap_types_and_transport_raise():
     """A transport whose view holds every shard uploads the same plan; a
-    view of fewer shards raises (one controller per shard group: item
-    17)."""
+    view of fewer shards raises (TAP across controllers: item 18)."""
     tA = to_port(_jax_matrix("aniso", 8))
     plan = ttap.build_tap_plan(tA, 2, 4)
     cpu = torch.device("cpu")
@@ -180,6 +179,6 @@ def test_device_put_tap_types_and_transport_raise():
                              first_shard=0, n_local=8)
     for f in ttap._TAP_DATA:
         assert torch.equal(getattr(T2, f), getattr(T, f)), f
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="item 18"):
         ttap.device_put_tap(plan, torch.float32, cpu, tr=tr,
                             first_shard=4, n_local=4)
