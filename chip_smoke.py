@@ -132,7 +132,24 @@ exit code and no result line:
    launches. (b) one float64 V-cycle of a 64^2 hierarchy on two
    controllers, on the card and on the CPU: equal to 1e-12 of max |x|.
    Its seconds and a JSON summary line (``phase16``) come before the
-   kernel list.
+   kernel list;
+17. TAP and the Krylov solvers across controllers: 8 controllers laid
+   out as 2 hosts x 4. (a) each runs 16a's setup over
+   ``comm.tapgroup.TapGroup`` (the node-aware schedule: 15a's levels,
+   operators and P within 1e-12, TapGroup's inter- and intra-node sends
+   summed) and ``from_spmd`` with TAP on every level, whose exchanges are
+   all-to-alls over gloo sub-groups of a host's and of a local index's
+   controllers: 15a's TAP refinements to 1e-8 with b = A 1, the host
+   residual below 1e-8, 15a's TAP launches a cycle by every controller,
+   one cycle's device and enqueue ms beside 16a's plain one. (b) on the
+   plain ``from_spmd`` hierarchies, AMG-PCG, Pre-BiCGStab and GMRES(30)
+   in float32 to 1e-5 (phase 10's runs) and a sequential-inner
+   Pre-BiCGStab to 1e-8 on the float64 one, each in the iterations of
+   the same run on 15a's per-rank setup stacked on the card, the float64
+   run's x within 1e-12 of max |x| of the stacked one's. (c) one float64
+   TAP V-cycle of a 64^2 hierarchy on 4 controllers as 2 x 2, on the card
+   and on the CPU: equal to 1e-12 of max |x|. Its seconds and a JSON
+   summary line (``phase17``) come before the kernel list.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -2253,18 +2270,20 @@ def mc_rows(n, world, rank):
                                         first_shard=rank), block
 
 
-def mc_setup(comm, n):
+def mc_setup(comm, n, group=None):
     """A controller's ``spmd_rs_setup`` of its rows (HMIS + extended+i,
-    theta 0.25, the glibc weights) over its ``SocketGroup``; returns (the
-    hierarchy, the transport factory, its rows, seconds)."""
+    theta 0.25, the glibc weights) over ``group`` (its ``SocketGroup`` by
+    default); returns (the hierarchy, the transport factory, its rows,
+    seconds)."""
     from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
     from raptor_tpu_torch.comm.spmd import spmd_rs_setup
     from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+    group = comm.group if group is None else group
     t0 = time.perf_counter()
     a, block = mc_rows(n, comm.world, comm.rank)
 
     def make_transport(m):
-        return MultiProcessTransport(comm.group, m)
+        return MultiProcessTransport(group, m)
 
     hier = spmd_rs_setup(a, form_rand_weights(n * n, 0), make_transport)
     return hier, make_transport, block, time.perf_counter() - t0
@@ -2282,7 +2301,6 @@ def mc_controller(comm, n):
     from raptor_tpu_torch.device import kernels
     from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
     hier, make_transport, block, setup_s = mc_setup(comm, n)
-    g = comm.group
     t0 = time.perf_counter()
     dh = DeviceHierarchy.from_spmd(
         hier, make_transport, relax_type=RelaxType.Chebyshev,
@@ -2290,6 +2308,21 @@ def mc_controller(comm, n):
         device=comm.device, comm=comm)
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
+    out = mc_solve_report(torch, kernels, comm, dh, block, n)
+    out.update({
+        "setup_s": setup_s, "pack_s": pack_s,
+        "a_blocks": [lvl.a_local.shards()[0].global_cols_csr(
+            lvl.a_local.partition.global_num_cols) for lvl in hier.levels],
+        "p_blocks": [lvl.p_block for lvl in hier.levels[:-1]]})
+    return out
+
+
+def mc_solve_report(torch, kernels, comm, dh, block, n):
+    """A controller's refinement of ``dh`` to 1e-8 with b = A 1 (its
+    launches counted from zero just before it and read just after), the
+    host-recomputed residual, one V-cycle's device ms by CUDA events,
+    enqueue ms and launches, the levels and formats."""
+    g = comm.group
     b = block.to_scipy() @ np.ones(n * n)
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -2314,33 +2347,34 @@ def mc_controller(comm, n):
     # a cycle waits on about 80 host-staged collectives: 3 rounds suffice
     cycle_ms = time_ms(torch, lambda: dh.vcycle(xd, bd), reps=3, warm=1)
     return {
-        "rank": comm.rank, "setup_s": setup_s, "pack_s": pack_s,
-        "solve_s": solve_s, "refinements": len(hist) - 1,
+        "rank": comm.rank, "solve_s": solve_s, "refinements": len(hist) - 1,
         "res": float(hist[-1]), "relres": float(np.sqrt(sums[0] / sums[1])),
         "finite": bool(np.isfinite(x).all()), "launches": launches,
         "launches_per_vcycle": per_cycle, "vcycle_ms": cycle_ms,
         "vcycle_enqueue_ms": enqueue_ms,
         "levels": [lvl.A.global_num_rows for lvl in dh.levels],
-        "formats": dh.format_summary(),
-        "a_blocks": [lvl.a_local.shards()[0].global_cols_csr(
-            lvl.a_local.partition.global_num_cols) for lvl in hier.levels],
-        "p_blocks": [lvl.p_block for lvl in hier.levels[:-1]]}
+        "formats": dh.format_summary()}
 
 
-def mc_cycle(comm, n):
-    """16b, one controller: one float64 V-cycle of its n x n from_spmd
-    hierarchy on its device and on the CPU (lane pad 128 on both), b =
-    A 1 from zero; returns its rows of both."""
+def mc_cycle(comm, n, layout=None):
+    """16b and 17c, one controller: one float64 V-cycle of its n x n
+    from_spmd hierarchy on its device and on the CPU (lane pad 128 on
+    both), b = A 1 from zero, with TAP on every level of
+    ``make_mesh2(*layout)`` when a layout is given; returns its rows of
+    both."""
     import torch
     from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device.par import make_mesh2
     from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
     hier, make_transport, block, _ = mc_setup(comm, n)
     b = block.to_scipy() @ np.ones(n * n)
+    tap = ({} if layout is None else
+           {"mesh": make_mesh2(*layout), "tap_amg": 0})
     out = {}
     for dev in (comm.device, torch.device("cpu")):
         dh = DeviceHierarchy.from_spmd(
             hier, make_transport, relax_type=RelaxType.Chebyshev,
-            num_smooth_sweeps=3, lane_pad=128, device=dev, comm=comm)
+            num_smooth_sweeps=3, lane_pad=128, device=dev, comm=comm, **tap)
         out[dev.type] = dh.host(dh.vcycle(dh.vector(np.zeros_like(b)),
                                           dh.vector(b)))
     return out
@@ -2420,6 +2454,256 @@ def multi_controller(torch, hier15, bridge, kernels, by_path,
             "launches_per_vcycle": {
                 k: sum(r["launches_per_vcycle"][k] for r in res)
                 for k in names},
+            "ranks": ranks, "run_s": wall_s, "card_cpu_rel_err": err}
+
+
+# phase 17: TAP and the Krylov solvers across controllers, on
+# MC_CONTROLLERS controllers laid out as TAP_LAYOUT (hosts x controllers a
+# host): 17a the setup over ``TapGroup`` and the TAP solve of 15a's
+# problem, 17b the Krylov solvers on the plain hierarchy, each in the
+# iterations of the stacked route on 15a's per-rank setup, 17c a small
+# TAP cycle on the card against the CPU. 17b's runs, each on the fine
+# operator of a plain Chebyshev(3) hierarchy of its dtype with that
+# hierarchy's V-cycle as the preconditioner, b = A 1 (the float32 ones
+# are phase 10's): (name, module of raptor_tpu_torch.krylov, function,
+# dtype, tolerance, other arguments). The float64 one keeps its solution,
+# which must equal the stacked route's to MC_KRYLOV_X_TOL of max |x|: in
+# float64 the routes' per-shard sums, which may reduce in other orders on
+# a [1, R] stack than on an [8, R] one, round apart by about 1e-16
+MC_KRYLOV = (("AMG-PCG", "cg", "cg", "float32", 1e-5, {}),
+             ("Pre-BiCGStab", "bicgstab", "bicgstab", "float32", 1e-5, {}),
+             ("AMG-GMRES(30)", "gmres", "gmres", "float32", 1e-5,
+              {"restart": 30}),
+             ("SeqInner Pre-BiCGStab (float64)", "bicgstab",
+              "seq_inner_bicgstab", "float64", 1e-8, {}))
+MC_KRYLOV_CAP = 200
+MC_KRYLOV_X_TOL = 1e-12
+MC_TAP_CPU = (64, (2, 2))   # 17c: side and layout of the card-vs-CPU cycle
+
+
+def plain_hierarchies(torch, hier, make_transport, device, comm=None):
+    """17b's plain Chebyshev(3) ``from_spmd`` hierarchies of ``hier``
+    (lane pad 128), by dtype name: every shard on ``device``
+    (``comm=None``) or this controller's."""
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    return {dt: DeviceHierarchy.from_spmd(
+        hier, make_transport, relax_type=RelaxType.Chebyshev,
+        num_smooth_sweeps=3, dtype=getattr(torch, dt), lane_pad=128,
+        device=device, comm=comm) for dt in ("float32", "float64")}
+
+
+def mc_krylov(torch, dhs, b):
+    """17b's runs (MC_KRYLOV) from zero, each on the fine operator of the
+    hierarchy of its dtype in ``dhs`` (``plain_hierarchies``) with that
+    hierarchy's V-cycle as the preconditioner; ``b`` holds the
+    hierarchies' rows (every row, or the controller's). Returns per run
+    its iterations, relative residual, seconds and finiteness, and the
+    float64 run's rows of x."""
+    import importlib
+    out = {}
+    for name, mod, fn, dt, tol, kw in MC_KRYLOV:
+        dh = dhs[dt]
+        A = dh.levels[0].A
+        x0, bd = dh.vector(np.zeros_like(b)), dh.vector(b)
+        solve = getattr(importlib.import_module(
+            f"raptor_tpu_torch.krylov.{mod}"), fn)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve(A, x0, bd, tol=tol, max_iter=MC_KRYLOV_CAP,
+                  precond=dh.precond_pack(), **kw)
+        torch.cuda.synchronize()
+        # CG and GMRES hold ||r|| / ||b||, BiCGStab ||r||; x0 = 0
+        out[name] = {"iters": r.n_iters,
+                     "rel_res": float(r.res[r.n_iters] / r.res[0]),
+                     "s": time.perf_counter() - t0,
+                     "finite": bool(torch.isfinite(r.x).all())}
+        if dt == "float64":
+            out[name]["x"] = dh.host(r.x)
+    return out
+
+
+def mc_tap_controller(comm, n):
+    """17a and 17b, one controller: ``mc_setup`` over ``TapGroup(
+    comm.group, ppn)`` (ppn the controllers a host of TAP_LAYOUT), then
+    ``from_spmd`` with TAP on every level of ``make_mesh2(*TAP_LAYOUT)``
+    and ``comm`` (float32 Chebyshev(3), lane pad 128) refined to 1e-8
+    with b = A 1, as ``mc_controller``; then the plain hierarchies
+    (``tap_amg=-1``) and ``mc_krylov`` on them. Returns its level blocks,
+    the group's send counts, and what ``mc_controller`` returns of a
+    solve."""
+    import torch
+    from raptor_tpu_torch.comm.tapgroup import TapGroup
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device import kernels
+    from raptor_tpu_torch.device.par import make_mesh2
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    group = TapGroup(comm.group, TAP_LAYOUT[1])
+    hier, make_transport, block, setup_s = mc_setup(comm, n, group)
+    kw = dict(relax_type=RelaxType.Chebyshev, num_smooth_sweeps=3,
+              dtype=torch.float32, lane_pad=128, device=comm.device,
+              comm=comm)
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy.from_spmd(hier, make_transport,
+                                   mesh=make_mesh2(*TAP_LAYOUT), tap_amg=0,
+                                   **kw)
+    torch.cuda.synchronize()
+    pack_s = time.perf_counter() - t0
+    out = mc_solve_report(torch, kernels, comm, dh, block, n)
+    out.update({
+        "setup_s": setup_s, "pack_s": pack_s,
+        "inter_sends": group.inter_sends, "intra_sends": group.intra_sends,
+        "tap_levels": sum(lvl.TA is not None for lvl in dh.levels),
+        "a_blocks": [lvl.a_local.shards()[0].global_cols_csr(
+            lvl.a_local.partition.global_num_cols) for lvl in hier.levels],
+        "p_blocks": [lvl.p_block for lvl in hier.levels[:-1]]})
+    del dh
+    t0 = time.perf_counter()
+    dhs = plain_hierarchies(torch, hier, make_transport, comm.device, comm)
+    torch.cuda.synchronize()
+    out["plain_pack_s"] = time.perf_counter() - t0
+    b = block.to_scipy() @ np.ones(n * n)
+    kernels.reset_launches()
+    out["krylov"] = mc_krylov(torch, dhs, b)
+    out["krylov_launches"] = dict(kernels.LAUNCHES)
+    return out
+
+
+def mc_tap_krylov(torch, hier15, bridge, mc16, kernels, by_path,
+                  device="cuda"):
+    """17 (see the module docstring): first 17b's runs on the stacked
+    route (15a's per-rank setup, ``hier15``, packed plain by
+    ``from_spmd`` on the card: ``plain_hierarchies``), then
+    ``mc_tap_controller`` on MC_CONTROLLERS controllers: 15a's levels,
+    operators and P (within SPMD_TOL), 15a's TAP refinements
+    (``bridge``) and its launches a cycle, the host residual below 1e-8,
+    TapGroup's send counts summed; each controller's cycle beside 16a's
+    (``mc16``); 17b's iterations those of the stacked route and the
+    float64 run's rows within MC_KRYLOV_X_TOL of max |x|. Then
+    ``mc_cycle`` with TAP on MC_TAP_CPU's layout: card and CPU within
+    CARD_CPU_TOL of max |x|. Launches go to ``by_path["2d_mc_tap"]`` (the
+    TAP solves) and ``"2d_mc_krylov"``."""
+    from raptor_tpu_torch.comm.launch import run_controllers
+    from raptor_tpu_torch.comm.transport import InProcessTransport
+    n = bridge["n"]
+    world = MC_CONTROLLERS
+    t0 = time.perf_counter()
+    dhs = plain_hierarchies(torch, hier15, InProcessTransport, device)
+    a = hier15.levels[0].a_local
+    ref_krylov = mc_krylov(torch, dhs, a.mult(np.ones(a.global_num_rows)))
+    del dhs
+    torch.cuda.empty_cache()
+    stacked_s = time.perf_counter() - t0
+    for name, c in ref_krylov.items():
+        print(f"  stacked {name:32s}: {c['iters']:4d} iterations to "
+              f"{c['rel_res']:.3e} in {c['s']:.3f} s", flush=True)
+    t0 = time.perf_counter()
+    res = run_controllers(world, "chip_smoke:mc_tap_controller", (n,),
+                          device=device, timeout=MC_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    levels = res[0]["levels"]
+    worst = max(
+        spmd_levels_close(f"{world} controllers over TapGroup {n}^2",
+                          [lvl.a_local.assemble_global()
+                           for lvl in hier15.levels],
+                          [stacked([r["a_blocks"][i] for r in res])
+                           for i in range(len(levels))]),
+        spmd_levels_close(f"{world} controllers over TapGroup {n}^2 P",
+                          [stacked(lvl.p_blocks)
+                           for lvl in hier15.levels[:-1]],
+                          [stacked([r["p_blocks"][i] for r in res])
+                           for i in range(len(levels) - 1)]))
+    want = bridge["tap0"]["refinements"]
+    want_cycle = bridge["tap0"]["launches_per_vcycle"]
+    tols = {name: tol for name, _, _, _, tol, _ in MC_KRYLOV}
+    names = list(res[0]["launches"])
+    by_path["2d_mc_tap"] = {k: sum(r["launches"][k] for r in res)
+                            for k in names}
+    by_path["2d_mc_krylov"] = {k: sum(r["krylov_launches"][k] for r in res)
+                               for k in names}
+    ranks = []
+    for r, r16 in zip(res, mc16["ranks"]):
+        print(f"  controller {r['rank']}: setup over TapGroup "
+              f"{r['setup_s']:.3f} s (inter-node sends {r['inter_sends']}, "
+              f"intra-node {r['intra_sends']}), TAP pack {r['pack_s']:.3f} "
+              f"s, {r['refinements']} refinements to {r['res']:.3e} (host "
+              f"{r['relres']:.3e}) in {r['solve_s']:.3f} s; a TAP cycle "
+              f"{r['vcycle_ms']:.3f} ms on the card, enqueue "
+              f"{r['vcycle_enqueue_ms']:.3f} ms (16a's plain cycle "
+              f"{r16['vcycle_ms']:.3f} / {r16['vcycle_enqueue_ms']:.3f} ms); "
+              f"launches a cycle {r['launches_per_vcycle']}", flush=True)
+        if (r["refinements"] != want or r["res"] > 1e-8
+                or r["relres"] > 1e-8 or not r["finite"]
+                or r["levels"] != levels
+                or r["tap_levels"] != len(levels)):
+            raise AssertionError(f"controller {r['rank']}: "
+                                 f"{r['refinements']} TAP refinements to "
+                                 f"{r['res']} (host {r['relres']}), 15a's "
+                                 f"{want}")
+        require_launches(f"controller {r['rank']} TAP", r["launches"])
+        if any(r["launches_per_vcycle"][k] != want_cycle[k]
+               for k in ("dia_spmv", "bdia_spmv")):
+            raise AssertionError(f"controller {r['rank']}: a TAP cycle "
+                                 f"launches {r['launches_per_vcycle']}, "
+                                 f"15a's {want_cycle}")
+        for name, c in r["krylov"].items():
+            ref = ref_krylov[name]
+            tol = tols[name]
+            print(f"    {name:32s}: {c['iters']:4d} iterations to "
+                  f"{c['rel_res']:.3e} in {c['s']:.3f} s", flush=True)
+            if (c["iters"] != ref["iters"] or not c["rel_res"] <= tol
+                    or not c["finite"]):
+                raise AssertionError(f"controller {r['rank']} {name}: "
+                                     f"{c['iters']} iterations to "
+                                     f"{c['rel_res']}, the stacked route's "
+                                     f"{ref['iters']}")
+        require_launches(f"controller {r['rank']} Krylov",
+                         r["krylov_launches"])
+        ranks.append({k: v for k, v in r.items()
+                      if k not in ("a_blocks", "p_blocks", "krylov")})
+        ranks[-1]["krylov"] = {k: {f: v for f, v in c.items() if f != "x"}
+                               for k, c in r["krylov"].items()}
+    seq = next(m for m, _, _, dt, _, _ in MC_KRYLOV if dt == "float64")
+    x_ref = ref_krylov[seq]["x"]
+    x_mc = np.concatenate([r["krylov"][seq]["x"] for r in res])
+    x_err = float(np.abs(x_mc - x_ref).max() / np.abs(x_ref).max())
+    inter = sum(r["inter_sends"] for r in res)
+    intra = sum(r["intra_sends"] for r in res)
+    print("\n".join(res[0]["formats"]))
+    print(f"{world} controllers {n}^2, TAP on every level: levels "
+          f"{levels}, 15a's within {worst:.3e}, {want} refinements as 15a; "
+          f"TapGroup sends {inter} inter-node, {intra} intra-node; "
+          f"launches {by_path['2d_mc_tap']}; Krylov the stacked route's "
+          f"iterations, {seq} x {x_err:.3e} of max |x| from it; launches "
+          f"{by_path['2d_mc_krylov']}; {wall_s:.3f} s", flush=True)
+    if not x_err <= MC_KRYLOV_X_TOL:
+        raise AssertionError(f"{seq}: controllers and the stacked route "
+                             f"differ by {x_err} of max |x|")
+    cpu_n, layout = MC_TAP_CPU
+    t1 = time.perf_counter()
+    cyc = run_controllers(layout[0] * layout[1], "chip_smoke:mc_cycle",
+                          (cpu_n, layout), device=device,
+                          timeout=MC_TIMEOUT)
+    card = np.concatenate([c[torch.device(device).type] for c in cyc])
+    cpu = np.concatenate([c["cpu"] for c in cyc])
+    err = float(np.abs(card - cpu).max() / np.abs(cpu).max())
+    print(f"reference: {cpu_n}^2 on {layout[0]} x {layout[1]} controllers, "
+          f"one float64 TAP V-cycle, card against CPU {err:.3e} of max |x| "
+          f"({time.perf_counter() - t1:.3f} s)")
+    if not err <= CARD_CPU_TOL:
+        raise AssertionError(f"TAP across controllers: card and CPU differ "
+                             f"by {err}")
+    return {"n": n, "controllers": world, "layout": list(TAP_LAYOUT),
+            "levels": levels, "setup_rel_diff": worst, "refinements": want,
+            "inter_sends": inter, "intra_sends": intra,
+            "launches": by_path["2d_mc_tap"],
+            "launches_per_vcycle": {
+                k: sum(r["launches_per_vcycle"][k] for r in res)
+                for k in names},
+            "krylov_launches": by_path["2d_mc_krylov"],
+            "stacked_krylov": {k: {f: v for f, v in c.items() if f != "x"}
+                               for k, c in ref_krylov.items()},
+            "stacked_s": stacked_s, "seq_x_rel_err": x_err,
             "ranks": ranks, "run_s": wall_s, "card_cpu_rel_err": err}
 
 
@@ -2712,10 +2996,18 @@ def main(argv=None):
     # 16. the setup over real processes and one controller per shard
     t0 = time.perf_counter()
     summary_mc = multi_controller(torch, hier15, bridge, kernels, by_path)
-    del hier15
     summary_mc["seconds"] = time.perf_counter() - t0
     print(json.dumps({"phase16": summary_mc}))
     phase("the setup over processes, one controller per shard", t0)
+
+    # 17. TAP and the Krylov solvers across controllers
+    t0 = time.perf_counter()
+    summary_mct = mc_tap_krylov(torch, hier15, bridge, summary_mc, kernels,
+                                by_path)
+    del hier15
+    summary_mct["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase17": summary_mct}))
+    phase("TAP and Krylov across controllers", t0)
 
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
@@ -2757,7 +3049,8 @@ def main(argv=None):
                 "3d_sa_spmd": summary_spmd["sa"]["launches_per_vcycle"][name],
                 "2d_bsr_dist": summary_spmd["bsr"]["launches_per_vcycle"][
                     name],
-                "2d_mc": summary_mc["launches_per_vcycle"][name]},
+                "2d_mc": summary_mc["launches_per_vcycle"][name],
+                "2d_mc_tap": summary_mct["launches_per_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -2781,7 +3074,7 @@ def main(argv=None):
                       "2d_sor_krylov": summaryk, "sa": summary_sa,
                       "bsr": summary_bsr, "setup_on_card": summary_card,
                       "tap": summary_tap, "spmd": summary_spmd,
-                      "mc": summary_mc,
+                      "mc": summary_mc, "mc_tap": summary_mct,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

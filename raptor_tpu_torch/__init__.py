@@ -28,10 +28,12 @@ bit-identical hierarchies.
   ``DeviceHierarchy.from_spmd`` packs it for the device solve through the
   transport (``vector_local`` places per-rank vectors). Over real
   processes the setup runs on ``comm.multiproc.MultiProcessTransport``
-  (``ProcessGroup`` or the TCP ``comm.netgroup.SocketGroup``), and with
-  one controller per shard (``comm.bootstrap.init``, started by
+  (``ProcessGroup`` or the TCP ``comm.netgroup.SocketGroup``, staged
+  node by node by ``comm.tapgroup.TapGroup``), and with one controller
+  per shard (``comm.bootstrap.init``, started by
   ``comm.launch.run_controllers``) ``from_spmd(..., comm=comm)`` solves
-  across the controllers over ``torch.distributed`` (gloo).
+  across the controllers over ``torch.distributed`` (gloo), with the
+  topology-aware exchange and the Krylov solvers too.
 - **Solve** (device): ``multilevel.device_hierarchy.DeviceHierarchy``
   packs every level into stacked-shard ``[S, ...]`` tensors
   (``device.par.device_put_matrix``) and runs V-cycles with any smoother

@@ -12,9 +12,14 @@ each behind its own ``PrefixStore``:
   returned ``DeviceComm`` runs the solve's collectives over.
 
 A controller holds one shard (the reference's MPI rank with its row
-block). ``DeviceComm`` has the three collectives the V-cycle needs: the
-halo exchange's ``all_to_all`` of a ``[S_dst, Q]`` send buffer, the inner
-products' ``all_reduce_sum`` and the coarse solve's ``all_gather``.
+block). ``DeviceComm`` has the collectives the solve needs: the halo
+exchange's ``all_to_all`` of a ``[S_dst, Q]`` send buffer and
+``all_gather``, which the coarse solve and the inner products use (each
+controller's per-shard partial dots, gathered into shard order, are summed
+as the stacked route sums its own). ``mesh2(H, L)`` gives the two
+sub-groups of a (host, local) layout that the topology-aware exchange
+(``comm.tap``) runs its all-to-alls over: this controller's host's L
+controllers, and the H controllers of its local index.
 
 Only the gloo backend is wired. Gloo's collectives do not take every CUDA
 tensor, so with ``backend="gloo"`` a ``DeviceComm`` copies a CUDA tensor
@@ -28,6 +33,7 @@ from __future__ import annotations
 
 import datetime
 import urllib.parse
+from typing import Dict, Tuple
 
 import torch
 import torch.distributed as dist
@@ -53,27 +59,57 @@ class DeviceComm:
         # gloo runs on host tensors: a tensor elsewhere goes through the
         # host explicitly (module docstring)
         self._via_host = backend == "gloo"
+        self._mesh2: Dict[Tuple[int, int], Tuple["SubComm", "SubComm"]] = {}
 
     def _host(self, t: torch.Tensor) -> torch.Tensor:
         t = t.contiguous()
         return t.cpu() if self._via_host else t
 
+    def _all_to_all(self, send: torch.Tensor, size: int,
+                    pg) -> torch.Tensor:
+        if send.shape[0] != size:
+            raise ValueError(f"all_to_all: a send buffer of {send.shape[0]} "
+                             f"rows for {size} ranks")
+        src = self._host(send)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=pg)
+        return out.to(send.device)
+
     def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
         """``send[d]`` goes to rank d; returns ``recv`` with ``recv[s]``
         what rank s sent this rank. ``send`` is ``[world, ...]``."""
-        if send.shape[0] != self.world:
-            raise ValueError(f"all_to_all: a send buffer of {send.shape[0]} "
-                             f"rows for {self.world} ranks")
-        src = self._host(send)
-        out = torch.empty_like(src)
-        dist.all_to_all_single(out, src)
-        return out.to(send.device)
+        return self._all_to_all(send, self.world, None)
 
-    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
-        """The sum of ``t`` over the ranks, on every rank."""
-        buf = self._host(t).clone()
-        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
-        return buf.to(t.device)
+    def mesh2(self, n_hosts: int, n_local: int) -> Tuple["SubComm",
+                                                           "SubComm"]:
+        """(local, host): this rank's sub-groups of the (host, local)
+        layout of ``device.par.Mesh2``, where rank r is local rank
+        r % n_local of host r // n_local. ``local`` holds the n_local
+        ranks of this rank's host, in local order; ``host`` the n_hosts
+        ranks of its local index, in host order. Every rank builds every
+        group (``torch.distributed.new_group`` is collective), the host
+        groups first and then the local ones, at its first call for a
+        layout; later calls return the cached pair."""
+        key = (int(n_hosts), int(n_local))
+        if key not in self._mesh2:
+            H, L = key
+            if H * L != self.world:
+                raise ValueError(f"a {H} x {L} layout of {self.world} "
+                                 f"controllers")
+            h, l = divmod(self.rank, L)
+            local = host = None
+            for hh in range(H):
+                ranks = [hh * L + j for j in range(L)]
+                pg = dist.new_group(ranks)
+                if hh == h:
+                    local = SubComm(self, pg, ranks)
+            for ll in range(L):
+                ranks = [k * L + ll for k in range(H)]
+                pg = dist.new_group(ranks)
+                if ll == l:
+                    host = SubComm(self, pg, ranks)
+            self._mesh2[key] = (local, host)
+        return self._mesh2[key]
 
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """``[world, *t.shape]``: every rank's ``t``, in rank order."""
@@ -89,6 +125,25 @@ class DeviceComm:
         self.group.close()
         dist.barrier()
         dist.destroy_process_group()
+
+
+class SubComm:
+    """The all-to-all among some of the controllers (a sub-group that this
+    rank is in, from ``DeviceComm.mesh2``), staged through the host as
+    the parent's collectives are. ``rank`` is this rank's index among
+    ``ranks``."""
+
+    def __init__(self, parent: DeviceComm, pg, ranks):
+        self.ranks = tuple(ranks)
+        self.world = len(self.ranks)
+        self.rank = self.ranks.index(parent.rank)
+        self._parent = parent
+        self._pg = pg
+
+    def all_to_all(self, send: torch.Tensor) -> torch.Tensor:
+        """``send[j]`` goes to the group's j-th rank; ``recv[j]`` is what
+        it sent this rank."""
+        return self._parent._all_to_all(send, self.world, self._pg)
 
 
 def _parse(addr: str):

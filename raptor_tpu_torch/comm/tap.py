@@ -21,16 +21,22 @@ with sum reductions (DuplicateData::communicate_T semantics,
 core/comm_data.hpp:1064-1424).
 
 The plan (``TAPPlanHost``) is host numpy, byte-equal to the JAX
-package's. On the device every shard stays on one card: the stacked
-``[S, ...]`` arrays hold all shards, and an all_to_all over an axis of
-the (host, local) layout is a transpose of the stacked buffer
-(``_a2a_local``, ``_a2a_host``), so one exchange is a few gathers,
-transposes and scatter-adds over every shard at once.
+package's. With every shard on one card the stacked ``[S, ...]`` arrays
+hold all shards, and an all_to_all over an axis of the (host, local)
+layout is a transpose of the stacked buffer (``_a2a_local``,
+``_a2a_host``), so one exchange is a few gathers, transposes and
+scatter-adds over every shard at once. Across controllers (one shard
+each, ``comm.bootstrap.DeviceComm``) every controller holds the same
+global plan and uploads its shard's row of it; the plan carries the
+comm's (local, host) sub-groups (``DeviceComm.mesh2``), and each
+transpose becomes an all-to-all over one of them. The gathers and
+scatter-adds, and so the arithmetic, are the same on both routes.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -257,7 +263,9 @@ _TAP_DATA = ["sendL_idx", "sendL_mask", "haloL_src", "haloL_mask",
 class DeviceTAP:
     """The plan's arrays as stacked ``[S, ...]`` tensors on one device:
     the masks in the hierarchy's dtype, the indices int64 (the port's
-    gather index type, as ``DeviceParCSR.send_idx``)."""
+    gather index type, as ``DeviceParCSR.send_idx``). Across controllers
+    ``S`` is 1 and ``sub`` is the comm's (local, host) sub-groups;
+    ``None`` when every shard is on this device."""
 
     sendL_idx: torch.Tensor
     sendL_mask: torch.Tensor
@@ -284,29 +292,40 @@ class DeviceTAP:
     QG: int
     QR: int
     halo_pad: int
+    sub: Optional[tuple] = None
 
 
 def device_put_tap(plan: TAPPlanHost, dtype: torch.dtype,
-                   device: torch.device, tr=None, first_shard: int = 0,
-                   n_local: int = None) -> DeviceTAP:
-    """The stacked plan on ``device``, which the caller has resolved (as
-    ``device.par.resolve_device`` does for a hierarchy). With a transport
-    (``tr``) every controller holds the same global plan (built from the
-    allgathered column maps) and uploads the slices of its shards
-    ``[first_shard, first_shard + n_local)``. The exchange transposes the
-    stacked buffer, so they must be every shard: TAP across controllers
-    is ROADMAP Queue 1 item 18, and a view of fewer shards raises."""
-    if tr is not None:
-        S = plan.H * plan.L
-        n_local = S if n_local is None else n_local
-        if first_shard != 0 or n_local != S:
-            raise NotImplementedError(
-                f"device_put_tap: the view holds shards [{first_shard}, "
-                f"{first_shard + n_local}) of {S}; the topology-aware "
-                f"exchange across controllers is ROADMAP Queue 1 item 18")
+                   device: torch.device, first_shard: int = 0,
+                   n_local: int = None, comm=None) -> DeviceTAP:
+    """The plan on ``device``, which the caller has resolved (as
+    ``device.par.resolve_device`` does for a hierarchy): every shard's
+    rows, or with ``comm`` (a ``DeviceComm``, one shard per controller)
+    the row of shard ``first_shard``, which must be the controller's
+    rank, with the comm's (local, host) sub-groups. Every controller
+    builds the same global plan (from the allgathered column maps:
+    ``build_tap_plan_from_maps``). Without a comm the exchange transposes
+    the stacked buffer, so a view of fewer shards raises."""
+    S = plan.H * plan.L
+    n_local = S - first_shard if n_local is None else n_local
+    sub = None
+    if comm is not None:
+        if n_local != 1 or first_shard != comm.rank or comm.world != S:
+            raise ValueError(
+                f"device_put_tap: rank {comm.rank} of {comm.world} "
+                f"controllers holds shards [{first_shard}, "
+                f"{first_shard + n_local}) of {S}; one shard a "
+                f"controller, its own")
+        sub = comm.mesh2(plan.H, plan.L)
+    elif first_shard != 0 or n_local != S:
+        raise ValueError(
+            f"device_put_tap: a view of shards [{first_shard}, "
+            f"{first_shard + n_local}) of {S} exchanges across "
+            f"controllers: pass their comm (comm.bootstrap.init)")
+    rows = slice(first_shard, first_shard + n_local)
 
     def conv(x):
-        x = np.asarray(x)
+        x = np.ascontiguousarray(np.asarray(x)[rows])
         if x.dtype.kind == "i":
             return torch.from_numpy(x.astype(np.int64)).to(device)
         return torch.from_numpy(x).to(device, dtype)
@@ -315,14 +334,16 @@ def device_put_tap(plan: TAPPlanHost, dtype: torch.dtype,
         **{f: conv(getattr(plan, f)) for f in _TAP_DATA},
         H=plan.H, L=plan.L, QL=plan.sendL_idx.shape[-1],
         QS=plan.sendS_idx.shape[-1], QG=plan.gpack_idx.shape[-1],
-        QR=plan.rpack_idx.shape[-1], halo_pad=plan.halo_pad)
+        QR=plan.rpack_idx.shape[-1], halo_pad=plan.halo_pad, sub=sub)
 
 
-# --- exchanges over stacked shards ------------------------------------------
+# --- the exchange's all-to-alls ----------------------------------------------
 
 def _a2a_local(T: DeviceTAP, buf: torch.Tensor) -> torch.Tensor:
     """all_to_all over the local axis of a [S, L, Q] buffer: shard (h, l)
     sends its row j to shard (h, j), which keeps it as its row l."""
+    if T.sub is not None:            # [1, L, Q]: over the host's group
+        return T.sub[0].all_to_all(buf[0])[None]
     H, L = T.H, T.L
     return buf.reshape(H, L, L, -1).transpose(1, 2).reshape(H * L, L, -1)
 
@@ -330,6 +351,8 @@ def _a2a_local(T: DeviceTAP, buf: torch.Tensor) -> torch.Tensor:
 def _a2a_host(T: DeviceTAP, buf: torch.Tensor) -> torch.Tensor:
     """all_to_all over the host axis of a [S, H, Q] buffer: shard (h, l)
     sends its row k to shard (k, l), which keeps it as its row h."""
+    if T.sub is not None:            # [1, H, Q]: over the local index's
+        return T.sub[1].all_to_all(buf[0])[None]
     H, L = T.H, T.L
     return (buf.reshape(H, L, H, -1).permute(2, 1, 0, 3)
             .reshape(H * L, H, -1))

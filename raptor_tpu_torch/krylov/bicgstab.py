@@ -12,12 +12,14 @@ Matches the reference (krylov/par_bicgstab.cpp):
   over half the shards, scaled by global_n/part_global
   (partial_inner.cpp:208 ``half_inner``), alternating halves per iteration
 
-Every inner product starts from ``device.par.shard_dots`` over the stacked
-[S, R] layout: "psum" sums the S partials, "sequential" sums them in shard
-order, ``partial`` sums those of shards ``idx < (S+1)//2`` on even
-iterations and of the others on odd ones. At S = 1 the odd half is empty:
-its inner products are 0, as in the JAX package, and the solve stops on
-the non-finite residual that follows.
+Every inner product starts from ``device.par.shard_dots``, the [S] shard
+partials in shard order (gathered from every controller across
+controllers, so each reduces the same vector): "psum" sums the S
+partials, "sequential" sums them in shard order, ``partial`` sums those of
+shards ``idx < (S+1)//2`` on even iterations and of the others on odd
+ones, scaled by the valid rows of every shard. At S = 1 the odd half is
+empty: its inner products are 0, as in the JAX package, and the solve
+stops on the non-finite residual that follows.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raptor_tpu_torch.device.par import DeviceParCSR, shard_dots, spmv
-from raptor_tpu_torch.krylov.cg import (Precond, default_max_iter,
-                                       require_one_device)
+from raptor_tpu_torch.device.par import (DeviceParCSR, all_shards,
+                                         shard_dots, spmv)
+from raptor_tpu_torch.krylov.cg import Precond, default_max_iter
 
 
 class BiCGStabResult(NamedTuple):
@@ -39,14 +41,15 @@ class BiCGStabResult(NamedTuple):
 
 
 def _inner_fn(A: DeviceParCSR, inner_mode: str, partial: bool):
-    """inner(u, v, parity) as the JAX package's shards compute it."""
-    S = A.n_shards
+    """inner(u, v, parity) as the JAX package's shards compute it, on the
+    [S] partials of every shard (across controllers too)."""
+    n_valid = all_shards(A.row_mask.sum(dim=1), A.comm)   # [S] valid rows
+    S = n_valid.shape[0]
     first_half = torch.arange(S, device=A.device) < (S + 1) // 2
-    n_valid = A.row_mask.sum(dim=1)                  # [S] valid rows
     global_n = float(A.global_num_rows)
 
     def inner(u, v, parity: int):
-        parts = shard_dots(u, v)
+        parts = shard_dots(u, v, A.comm)
         if partial:
             # half_inner (partial_inner.cpp:208-278)
             in_half = first_half if parity == 0 else ~first_half
@@ -67,7 +70,6 @@ def bicgstab(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
              partial: bool = False) -> BiCGStabResult:
     """``precond`` is ``DeviceHierarchy.precond_pack()``; ``inner_mode``
     and ``norm_mode`` are "psum" or "sequential"."""
-    require_one_device(A, "bicgstab")
     if max_iter is None:
         max_iter = default_max_iter(A)
     inner = _inner_fn(A, inner_mode, partial)

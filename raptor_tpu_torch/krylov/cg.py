@@ -11,8 +11,12 @@ Semantics match the reference (krylov/par_cg.cpp):
 
 The iteration is a Python loop on the device its tensors are on (there is
 no mesh argument: the shards are the leading axis of the stacked tensors).
-Scalars stay on the device in the solve's dtype; the host reads ``||r||``
-back once per iteration for the loop test. Every SpMV goes through
+Across controllers (a matrix with a ``comm``, one shard each) every
+controller runs the same loop on its shard; the inner products gather the
+per-shard dots into shard order (``device.par.dot``), so each controller
+takes the same steps and the iteration of the stacked route. Scalars stay
+on the device in the solve's dtype; the host reads ``||r||`` back once per
+iteration for the loop test. Every SpMV goes through
 ``device.par.spmv``, so it launches the DIA/BDIA kernels. The JAX
 package's ``krylov/_cache.py`` has no counterpart: it caches jitted solver
 programs, and this eager port compiles none.
@@ -25,7 +29,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from raptor_tpu_torch.device.par import DeviceParCSR, dot, spmv
+from raptor_tpu_torch.device import par as dpar
+from raptor_tpu_torch.device.par import DeviceParCSR, spmv
 
 # ``DeviceHierarchy.precond_pack()``: z = precond(x0, r), one V-cycle
 Precond = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
@@ -37,15 +42,6 @@ class CGResult(NamedTuple):
     #                         with -1 past convergence
     n_iters: int
     indefinite: bool
-
-
-def require_one_device(A: DeviceParCSR, what: str) -> None:
-    """Raise for a matrix whose shards lie on several controllers: the
-    Krylov solvers' inner products run on one device's stack."""
-    if A.comm is not None:
-        raise NotImplementedError(
-            f"{what} across {A.comm.world} controllers: the Krylov solvers "
-            f"across controllers are ROADMAP Queue 1 item 22")
 
 
 def default_max_iter(A: DeviceParCSR) -> int:
@@ -60,9 +56,12 @@ def cg(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
     """Global CG solve on stacked [S, R] vectors. ``precond``, if given,
     is ``DeviceHierarchy.precond_pack()``: this is PCG
     (par_cg.cpp:121-239)."""
-    require_one_device(A, "cg")
     if max_iter is None:
         max_iter = default_max_iter(A)
+
+    def dot(u, v):
+        return dpar.dot(u, v, A.comm)
+
     b_norm = torch.sqrt(dot(b, b))
     b_norm = torch.where(b_norm < zero_tol, 1.0, b_norm)
 

@@ -16,7 +16,11 @@ classical Gram-Schmidt with one reorthogonalization (CGS2), two batched
 once a step (the loop test needs it there anyway), where the Givens
 rotations and the triangular solve run on NumPy scalars of the solve's
 dtype, as the JAX package runs them on replicated device scalars. A
-restart ends on the true residual and stops when it stagnates.
+restart ends on the true residual and stops when it stagnates. Across
+controllers (a matrix with a ``comm``, one shard each) the norms and the
+Gram-Schmidt dots sum the per-shard partials gathered into shard order,
+so the Hessenberg solve runs on the same numbers, and so identically, on
+every controller.
 """
 
 from __future__ import annotations
@@ -27,9 +31,8 @@ import numpy as np
 import scipy.linalg
 import torch
 
-from raptor_tpu_torch.device.par import DeviceParCSR, dot, spmv
-from raptor_tpu_torch.krylov.cg import (Precond, default_max_iter,
-                                       require_one_device)
+from raptor_tpu_torch.device.par import DeviceParCSR, all_shards, dot, spmv
+from raptor_tpu_torch.krylov.cg import Precond, default_max_iter
 
 
 class GMRESResult(NamedTuple):
@@ -38,10 +41,14 @@ class GMRESResult(NamedTuple):
     n_iters: int            # total inner iterations
 
 
-def _batched_dots(V: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """<V[i], w> for every basis vector: each shard's local dots, summed
-    over the shards."""
-    return (V * w).sum(dim=-1).sum(dim=-1)
+def _batched_dots(V: torch.Tensor, w: torch.Tensor,
+                  comm=None) -> torch.Tensor:
+    """<V[i], w> for every basis vector: each shard's local dots (gathered
+    across controllers into ``[i, S]``), summed over the shards."""
+    parts = (V * w).sum(dim=-1)                       # [i, S_local]
+    if comm is not None:
+        parts = all_shards(parts.T, comm).T.contiguous()
+    return parts.sum(dim=-1)
 
 
 def gmres(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
@@ -51,14 +58,14 @@ def gmres(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
     """Global restarted GMRES(m) solve. ``precond``, if given, is
     ``DeviceHierarchy.precond_pack()``: AMG-preconditioned GMRES. The
     Arnoldi basis costs ``restart + 1`` vectors of device memory."""
-    require_one_device(A, "gmres")
     if max_iter is None:
         max_iter = default_max_iter(A)
     m = restart
     dt = torch.empty(0, dtype=b.dtype).numpy().dtype.type
+    comm = A.comm
 
     def norm(v) -> float:
-        return dt(torch.sqrt(dot(v, v)).item())
+        return dt(torch.sqrt(dot(v, v, comm)).item())
 
     def apply_M(v):
         return v if precond is None else precond(torch.zeros_like(v), v)
@@ -86,11 +93,11 @@ def gmres(A: DeviceParCSR, x0: torch.Tensor, b: torch.Tensor,
         while j < m and k < max_iter and not done:
             w = spmv(A, apply_M(V[j]))
             Vj = V[:j + 1]
-            h = _batched_dots(Vj, w)
+            h = _batched_dots(Vj, w, comm)
             w = w - (h[:, None, None] * Vj).sum(dim=0)
-            h2 = _batched_dots(Vj, w)
+            h2 = _batched_dots(Vj, w, comm)
             w = w - (h2[:, None, None] * Vj).sum(dim=0)
-            hj = torch.cat([h + h2, torch.sqrt(dot(w, w))[None]])
+            hj = torch.cat([h + h2, torch.sqrt(dot(w, w, comm))[None]])
             col = np.zeros(m + 1, dtype=dt)
             col[:j + 2] = hj.cpu().numpy()
             hj1 = col[j + 1]

@@ -412,10 +412,11 @@ class BSRDeviceHierarchy:
                  lane_pad: int = None, device="cuda"):
         if ml.levels[0].A.is_local_view:
             raise NotImplementedError(
-                "BSRDeviceHierarchy packs the global blocked operators; a "
-                "local view (one controller's setup, comm.spmd."
-                "spmd_bsr_setup) and the blocked solve across controllers "
-                "are ROADMAP Queue 1 item 22")
+                "BSRDeviceHierarchy packs the global blocked operators, as "
+                "the JAX package's BSRDeviceHierarchy does (it has no "
+                "from_spmd either); a local view (one controller's setup, "
+                "comm.spmd.spmd_bsr_setup) has no blocked solve across "
+                "controllers")
         if ml.tap_amg >= 0:
             raise NotImplementedError(
                 f"tap_amg = {ml.tap_amg}: the blocked V-cycle has no "

@@ -22,11 +22,13 @@ through the transport and forms P^T by the distributed transpose, with no
 global matrix, and then solves as the in-process route does. Given a
 ``comm.bootstrap.DeviceComm`` (one controller per shard, the setup over
 ``comm.multiproc.MultiProcessTransport``), each controller packs and
-solves only its shard: the halo exchanges are ``comm.all_to_all``, the
-norms ``comm.all_reduce_sum``, and the coarse solve gathers the coarse
-right-hand side with ``comm.all_gather`` and solves the whole (replicated)
-coarse system on every controller, keeping its own rows. The host vectors
-such a hierarchy takes and gives hold the controller's rows only.
+solves only its shard: the halo exchanges are ``comm.all_to_all`` (on the
+``tap_amg`` levels all-to-alls over the comm's host and local sub-groups),
+the norms sum the gathered per-shard dots, and the coarse solve gathers
+the coarse right-hand side with ``comm.all_gather`` and solves the whole
+(replicated) coarse system on every controller, keeping its own rows. The
+host vectors such a hierarchy takes and gives hold the controller's rows
+only; its ``precond_pack`` serves the Krylov solvers across controllers.
 """
 
 from __future__ import annotations
@@ -167,20 +169,19 @@ class DeviceHierarchy:
         """The solve's knobs, shared by both constructions: the device,
         the (host, local) layout that ``tap_amg >= 0`` needs, the lane
         padding (128 on CUDA, 1 elsewhere by default), the smoother and
-        the controllers' ``comm`` (None: every shard on one device)."""
+        the controllers' ``comm`` (None: every shard on one device), whose
+        count the layout must match too."""
         self.device = dpar.resolve_device(device)
         self.comm = comm
         self.tap_amg = tap_amg
-        if comm is not None and tap_amg >= 0:
-            raise NotImplementedError(
-                f"tap_amg = {tap_amg} across {comm.world} controllers: the "
-                f"topology-aware exchange across controllers is ROADMAP "
-                f"Queue 1 item 18; set tap_amg = -1")
-        if tap_amg >= 0 and not (isinstance(mesh, dpar.Mesh2)
-                                 and mesh.n_shards == n_shards):
+        if tap_amg >= 0 and not (
+                isinstance(mesh, dpar.Mesh2) and mesh.n_shards == n_shards
+                and (comm is None or comm.world == n_shards)):
             raise ValueError(
                 f"tap_amg = {tap_amg} needs mesh=make_mesh2(H, L) with "
-                f"H * L = {n_shards} shards, not {mesh!r}")
+                f"H * L = {n_shards} shards"
+                + ("" if comm is None else
+                   f" on {comm.world} controllers") + f", not {mesh!r}")
         self.mesh = mesh
         if lane_pad is None:
             lane_pad = 128 if self.device.type == "cuda" else 1
@@ -219,8 +220,7 @@ class DeviceHierarchy:
         The views hold every shard (``comm=None``, one device), or this
         controller's one shard, with ``comm`` its ``DeviceComm`` and
         ``make_transport`` a transport across the controllers (module
-        docstring); ``tap_amg >= 0`` across controllers raises (ROADMAP
-        Queue 1 item 18)."""
+        docstring)."""
         self = cls.__new__(cls)
         self._set_knobs(device, mesh, hier.levels[0].a_local.n_shards,
                         tap_amg, lane_pad, dtype,
@@ -250,9 +250,9 @@ class DeviceHierarchy:
                 [blk.off_proc_column_map for blk in m.shards()])
                 for c in rank_maps]
             plan = build_tap_plan_from_maps(flat, m.partition, *mesh.shape)
-            return device_put_tap(plan, dtype, self.device, tr=tr,
+            return device_put_tap(plan, dtype, self.device,
                                   first_shard=m.first_shard,
-                                  n_local=len(m.shards()))
+                                  n_local=len(m.shards()), comm=comm)
 
         levels: List[DeviceLevel] = []
         for i, lvl in enumerate(hier.levels):
@@ -435,12 +435,8 @@ class DeviceHierarchy:
         par_bicgstab.cpp:240), cached on the hierarchy. The cycle runs in
         the hierarchy's dtype and the correction is cast back to
         ``r.dtype``, so a float64 Krylov loop can use a float32
-        hierarchy. Across controllers it raises: the Krylov solvers run on
-        one device (ROADMAP Queue 1 item 22)."""
-        if self.comm is not None:
-            raise NotImplementedError(
-                "precond_pack across controllers: the Krylov solvers across "
-                "controllers are ROADMAP Queue 1 item 22")
+        hierarchy. Across controllers every controller calls it on its
+        shard, as it calls the solver."""
         if self._precond is None:
             def precond(x0: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
                 return self.vcycle(x0.to(self.dtype),

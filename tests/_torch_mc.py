@@ -1,10 +1,12 @@
 """Workers of the port's multi-process tests (tests/test_torch_netgroup.py,
-tests/test_torch_multicontroller.py, tests/test_torch_spmd.py), beside
-``_torch_parity``.
+tests/test_torch_multicontroller.py, tests/test_torch_spmd.py,
+tests/test_torch_tapgroup.py, tests/test_torch_mc_tap.py,
+tests/test_torch_mc_krylov.py), beside ``_torch_parity``.
 
-The controller functions (``bridge``, ``group_ops``, ``fails``,
-``sleeps``) run in interpreters that ``raptor_tpu_torch.comm.launch``
-starts, one per controller: they import the port only, never JAX.
+The controller functions (``bridge``, ``group_ops``, ``tapgroup_setup``,
+``tap_solve``, ``krylov``, ``fails``, ``sleeps``) run in interpreters
+that ``raptor_tpu_torch.comm.launch`` starts, one per controller: they
+import the port only, never JAX.
 ``transport_ops`` also runs under the fork launcher ``run_spmd`` and
 ``run_threads`` below runs a rank function in threads of this process.
 """
@@ -114,15 +116,12 @@ def bridge(comm, n):
     its own rows, ``spmd_rs_setup`` (HMIS + extended+i) over the
     ``SocketGroup``, ``from_spmd`` with ``comm``, then a float64
     Chebyshev solve (the JAX package's tests/_mc_worker.py) and a float32
-    Chebyshev(3) hierarchy refined to 1e-8 with float64 residuals; and the
-    raises across controllers (TAP, Krylov, the preconditioner)."""
+    Chebyshev(3) hierarchy refined to 1e-8 with float64 residuals."""
     import torch
     from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
     from raptor_tpu_torch.comm.spmd import spmd_rs_setup
     from raptor_tpu_torch.core.types import (CoarsenType, InterpType,
                                              RelaxType)
-    from raptor_tpu_torch.device.par import make_mesh2
-    from raptor_tpu_torch.krylov.cg import cg
     from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
     from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
 
@@ -149,18 +148,152 @@ def bridge(comm, n):
                                      dtype=torch.float32, **kw)
     out["x_mixed"], out["hist_mixed"] = dh32.solve_mixed(
         np.zeros_like(b), b, tol=1e-8)
-    raises = {}
-    for what, call in (
-            ("tap", lambda: DeviceHierarchy.from_spmd(
-                hier, make_transport, mesh=make_mesh2(1, comm.world),
-                tap_amg=0, **kw)),
-            ("cg", lambda: cg(dh.levels[0].A, dh.vector(b), dh.vector(b))),
-            ("precond", dh.precond_pack)):
-        try:
-            call()
-        except NotImplementedError as e:
-            raises[what] = str(e)
-    out["raises"] = raises
+    return out
+
+
+def tapgroup_setup(comm, n, ppn):
+    """One controller's ``spmd_rs_setup`` (HMIS + extended+i) of its rows
+    of the n x n problem over ``TapGroup(comm.group, ppn)``: every level's
+    row block (global columns, as CSR arrays) and the group's send
+    counts."""
+    from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.comm.tapgroup import TapGroup
+    from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+    a, _ = aniso_view(n, comm.world, comm.rank)
+    group = TapGroup(comm.group, ppn)
+    hier = spmd_rs_setup(a, form_rand_weights(n * n, 0),
+                         lambda m: MultiProcessTransport(group, m))
+    levels = []
+    for lvl in hier.levels:
+        m = lvl.a_local.shards()[0].global_cols_csr(
+            lvl.a_local.partition.global_num_cols)
+        levels.append((m.indptr, m.indices, m.data))
+    return {"levels": levels, "inter_sends": group.inter_sends,
+            "intra_sends": group.intra_sends}
+
+
+def tap_solve(comm, n, layout, tap_amgs):
+    """One controller of the TAP solve across controllers (the JAX
+    package's tests/_mc_worker.py with ``tap``): its rows of the n x n
+    problem, ``spmd_rs_setup`` (HMIS + extended+i) over its
+    ``SocketGroup``, then for each ``tap_amg`` of ``tap_amgs``
+    ``from_spmd`` on ``make_mesh2(*layout)`` with ``comm`` and a float64
+    Chebyshev solve of b = A 1; its rows, history and cycles of each."""
+    from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device.par import make_mesh2
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+
+    a, block = aniso_view(n, comm.world, comm.rank)
+
+    def make_transport(m):
+        return MultiProcessTransport(comm.group, m)
+
+    hier = spmd_rs_setup(a, form_rand_weights(n * n, 0), make_transport)
+    b = block.to_scipy() @ np.ones(n * n)
+    out = {"rank": comm.rank, "r0": int(a.partition.row_bounds[comm.rank])}
+    for tap_amg in tap_amgs:
+        dh = DeviceHierarchy.from_spmd(
+            hier, make_transport, relax_type=RelaxType.Chebyshev,
+            device=comm.device, comm=comm, mesh=make_mesh2(*layout),
+            tap_amg=tap_amg)
+        res = dh.solve(dh.vector(np.zeros_like(b)), dh.vector(b))
+        out[tap_amg] = {"x": dh.host(res.x), "n_iters": res.n_iters,
+                        "hist": res.res[res.res >= 0.0],
+                        "tap_levels": [lvl.TA is not None
+                                       for lvl in dh.levels]}
+    return out
+
+
+def krylov_problem(n, world, rank, max_levels, make_transport=None,
+                   comm=None, device="cpu"):
+    """The Krylov cases' operators and right-hand sides on the shards of
+    ``rank`` (one rank's view across controllers, with ``comm`` and a
+    transport factory across them; every shard with ``rank=None``):
+    (the float64 ``from_spmd`` Chebyshev hierarchy of the n x n problem
+    set up to ``max_levels`` levels, the fine operator plus the identity
+    packed in float64, b = A 1 and a seeded standard normal b, each this
+    view's rows, and the row bounds)."""
+    import scipy.sparse as sp
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.comm.transport import (InProcessTransport,
+                                                 split_rows)
+    from raptor_tpu_torch.core.matrix import CSRMatrix
+    from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+    from raptor_tpu_torch.core.partition import Partition
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device.par import device_put_matrix
+    from raptor_tpu_torch.gallery.stencils import (diffusion_stencil_2d,
+                                                   stencil_grid)
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+    make_transport = make_transport or InProcessTransport
+    N = n * n
+    g = stencil_grid(diffusion_stencil_2d(*ANISO), (n, n)).to_scipy()
+    part = Partition.create(N, N, world)
+    rb = np.asarray(part.row_bounds)
+    shards = range(world) if rank is None else [rank]
+    first = 0 if rank is None else rank
+    r0, r1 = int(rb[first]), int(rb[shards[-1] + 1])
+
+    def view(m):
+        blocks = split_rows(CSRMatrix.from_scipy(m), rb)
+        return ParCSRMatrix.from_local_rows([blocks[s] for s in shards],
+                                            part, first_shard=first)
+
+    a = view(g)
+    hier = spmd_rs_setup(a, form_rand_weights(N, 0), make_transport,
+                         max_levels=max_levels)
+    dh = DeviceHierarchy.from_spmd(hier, make_transport,
+                                   relax_type=RelaxType.Chebyshev,
+                                   device=device, comm=comm)
+    shifted = view((g + sp.identity(N)).tocsr())
+    A1 = device_put_matrix(shifted, need_transpose=False, device=device,
+                           tr=make_transport(shifted), comm=comm)
+    b_ones = (g @ np.ones(N))[r0:r1]
+    b_rand = np.random.default_rng(world).standard_normal(N)[r0:r1]
+    return dh, A1, b_ones, b_rand, rb
+
+
+def krylov(comm, n, max_levels, solvers, tol, max_iter):
+    """One controller of the Krylov solvers across controllers: every
+    entry of ``solvers`` (name: (module, function, preconditioned,
+    keyword arguments), as tests/test_torch_krylov.py:SOLVERS) from zero
+    on its view of ``krylov_problem``, the preconditioned ones on the
+    hierarchy's fine operator with b = A 1 and ``precond_pack()``, the
+    plain ones on A + I with the seeded b; each one's rows of x, residual
+    history and iterations."""
+    import importlib
+    import torch
+    from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
+    from raptor_tpu_torch.device.par import device_put_vector, host_vector
+
+    def make_transport(m):
+        return MultiProcessTransport(comm.group, m)
+
+    dh, A1, b_ones, b_rand, rb = krylov_problem(
+        n, comm.world, comm.rank, max_levels, make_transport, comm,
+        comm.device)
+    out = {"rank": comm.rank, "r0": int(rb[comm.rank])}
+    for name, (mod, fn, pre, kw) in solvers.items():
+        A, b = (dh.levels[0].A, b_ones) if pre else (A1, b_rand)
+        if pre:
+            kw = dict(kw, precond=dh.precond_pack())
+
+        def vec(v):
+            return device_put_vector(v, rb, A.rows_pad, dtype=torch.float64,
+                                     device=comm.device,
+                                     first_shard=comm.rank, n_local=1)
+
+        solve = getattr(importlib.import_module(
+            f"raptor_tpu_torch.krylov.{mod}"), fn)
+        r = solve(A, vec(np.zeros_like(b)), vec(b), tol=tol,
+                  max_iter=max_iter, **kw)
+        out[name] = {"x": host_vector(r.x, rb, comm.rank), "res": r.res,
+                     "n_iters": r.n_iters}
     return out
 
 

@@ -12,8 +12,11 @@ must match the JAX package's in-process oracle
 (tests/test_multicontroller.py:65-90) to rtol 1e-12, with equal cycle
 counts. The same controllers refine a float32 Chebyshev(3) hierarchy to
 1e-8 with float64 residuals, which must take the refinements of the
-port's in-process route, and raise for what they do not run (TAP,
-Krylov, the preconditioner: ROADMAP Queue 1 items 18 and 22).
+port's in-process route. What the controllers do not run raises: the
+blocked solve of a one-shard view (the JAX package packs only global
+blocked operators too), and ``from_spmd`` of a one-shard view without the
+controllers' comm. TAP and the Krylov solvers across controllers are
+tests/test_torch_mc_tap.py and tests/test_torch_mc_krylov.py.
 """
 
 import functools
@@ -121,16 +124,12 @@ def test_multicontroller_mixed_refinement_matches_in_process(world):
 
 
 def test_multicontroller_raises_for_what_it_does_not_run():
-    """TAP across controllers names item 18; CG on a controller's matrix
-    and the preconditioner name item 22, and so does the blocked solve
-    of a one-shard view; ``from_spmd`` of a one-shard view without the
-    controllers' comm raises."""
-    for out in _controllers(2):
-        assert "Queue 1 item 18" in out["raises"]["tap"]
-        assert "Queue 1 item 22" in out["raises"]["cg"]
-        assert "Queue 1 item 22" in out["raises"]["precond"]
+    """The blocked solve of a one-shard view raises, naming the JAX
+    package's global-only blocked packing; ``from_spmd`` of a one-shard
+    view without the controllers' comm raises."""
     view, _ = _torch_mc.aniso_view(N, 2, 1)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 22"):
+    with pytest.raises(NotImplementedError,
+                       match="as the JAX package's BSRDeviceHierarchy"):
         BSRDeviceHierarchy(SimpleNamespace(levels=[SimpleNamespace(A=view)],
                                            tap_amg=-1), device="cpu")
     hier = SpmdHierarchy([SpmdLevel(view, None, None)], (None, None))

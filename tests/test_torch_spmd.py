@@ -347,7 +347,8 @@ def test_partial_local_view_packs_its_rows():
     level: the matrices (A with lane pads 1 and 128, P embedded), the
     relaxation plans, ``put_stacked``, ``device_put_vector`` and
     ``vector_local`` equal that rank's rows of the full stack's. The
-    topology-aware plan of a one-shard view raises, naming item 18."""
+    topology-aware plan of a one-shard view without the controllers'
+    comm raises (with it: tests/test_torch_mc_tap.py)."""
     import dataclasses
     th, _ = _rs("HMIS", "Extended", 4)
     tA, _, _ = _aniso(40, 4)
@@ -366,9 +367,9 @@ def test_partial_local_view_packs_its_rows():
                     pv, device="cpu", tr=MultiProcessTransport(group, pv),
                     lane_pad=128, embed="cols"))
             out.append((mats, rx))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 18"):
+        with pytest.raises(ValueError, match="pass their comm"):
             ttap.device_put_tap(ttap.build_tap_plan(tA, 2, 2),
-                                torch.float64, torch.device("cpu"), tr=tr,
+                                torch.float64, torch.device("cpu"),
                                 first_shard=rank, n_local=1)
         return out
 

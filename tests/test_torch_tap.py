@@ -23,7 +23,6 @@ from raptor_tpu.device import par as jpar  # noqa: E402
 from raptor_tpu.device import tap_ops as jops  # noqa: E402
 from raptor_tpu.gallery import stencils as jst  # noqa: E402
 from raptor_tpu_torch.comm import tap as ttap  # noqa: E402
-from raptor_tpu_torch.comm.transport import InProcessTransport  # noqa
 from raptor_tpu_torch.device import par as tpar  # noqa: E402
 from raptor_tpu_torch.device.tap_ops import tap_spmv, tap_spmv_T  # noqa
 
@@ -165,8 +164,9 @@ def test_tap_exchange_is_the_plain_exchange():
 
 
 def test_device_put_tap_types_and_transport_raise():
-    """A transport whose view holds every shard uploads the same plan; a
-    view of fewer shards raises (TAP across controllers: item 18)."""
+    """A view that holds every shard uploads the same plan; a view of
+    fewer shards without the controllers' comm raises (across controllers
+    each uploads its shard's row: tests/test_torch_mc_tap.py)."""
     tA = to_port(_jax_matrix("aniso", 8))
     plan = ttap.build_tap_plan(tA, 2, 4)
     cpu = torch.device("cpu")
@@ -174,11 +174,11 @@ def test_device_put_tap_types_and_transport_raise():
     assert T.sendL_mask.dtype == torch.float32
     assert T.sendL_idx.dtype == torch.int64
     assert (T.H, T.L, T.halo_pad) == (2, 4, plan.halo_pad)
-    tr = InProcessTransport(tA)
-    T2 = ttap.device_put_tap(plan, torch.float32, cpu, tr=tr,
-                             first_shard=0, n_local=8)
+    assert T.sub is None
+    T2 = ttap.device_put_tap(plan, torch.float32, cpu, first_shard=0,
+                             n_local=8)
     for f in ttap._TAP_DATA:
         assert torch.equal(getattr(T2, f), getattr(T, f)), f
-    with pytest.raises(NotImplementedError, match="item 18"):
-        ttap.device_put_tap(plan, torch.float32, cpu, tr=tr,
-                            first_shard=4, n_local=4)
+    with pytest.raises(ValueError, match="pass their comm"):
+        ttap.device_put_tap(plan, torch.float32, cpu, first_shard=4,
+                            n_local=4)
