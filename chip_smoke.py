@@ -149,7 +149,42 @@ exit code and no result line:
    run's x within 1e-12 of max |x| of the stacked one's. (c) one float64
    TAP V-cycle of a 64^2 hierarchy on 4 controllers as 2 x 2, on the card
    and on the CPU: equal to 1e-12 of max |x|. Its seconds and a JSON
-   summary line (``phase17``) come before the kernel list.
+   summary line (``phase17``) come before the kernel list;
+18. systems AMG, RAP sparsification and the profiling layer; (a), and
+   (b)'s two setups, on three controllers of the card
+   (``run_controllers``) that set up and pack at the same time and then,
+   once all are ready, run their timed work one at a time while the
+   others wait. (a) phase
+   12's Q1 elasticity matrix at ``--bsr`` as a scalar CSR, unknown-based:
+   ``num_variables = 2`` with the gallery's variable ids, CLJP + modified
+   classical, theta 0.25, Chebyshev(3), host engines; float32
+   ``solve_mixed`` to 1e-8 with b = A 1 (at most 100 refinements), the
+   setup's phase split, pack seconds, one cycle's device / enqueue / busy
+   ms and launches, beside phase 12's blocked AMG on the same matrix;
+   level 0's modified-classical interpolation with the variables replayed
+   through the device engine on the card (the host P's pattern, values
+   within 1e-14 of max |host|); a 24 x 24 float64 systems hierarchy on
+   the card and on the CPU: one V-cycle within 1e-14 of max |x|, the
+   solve to 1e-9 in the same cycles with x within 1e-12 (the gap printed
+   after 1, 6 and 12 cycles and the solve's last). (b) RAP sparsification
+   at (n/2)^2 (tests/test_multilevel.py::test_sparsify_large_2d: rotated
+   anisotropic diffusion, CLJP + modified classical, theta 0.25,
+   Chebyshev(3), ``sparsify_tol`` 0.4, the symmetric rule) beside the
+   same setup unsparsified: per-level nnz, the coarse-to-fine nnz ratio
+   below 2.5, every sparsified operator symmetric to 1e-10 and with its
+   Galerkin product's row sums to 1e-12 (of that product's largest
+   entry), and both solved as in (a). (c) the profiling layer on
+   hierarchies the run holds: ``DeviceHierarchy.print_times`` (20
+   repetitions) on phase 3's and phase 6's, five times each, each table
+   beside a chain of V-cycles timed the same way right after (every
+   level's smoother and SpMV time finite and above 0);
+   ``pcg_time_split`` of phase 10's AMG-PCG; ``device_trace`` around one
+   of phase 10's float32 V-cycles into build/trace18/, whose
+   kernels must include DIA and BDIA; the communication model of every
+   level of 14b's setup on 2 x 4 (TAP's bytes across hosts at most the
+   plain plan's and equal to its G step's). (c)'s parts run where those
+   hierarchies are held, and phase 18's JSON line (``phase18``) carries
+   them.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -160,6 +195,7 @@ import argparse
 import contextlib
 import functools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1286,13 +1322,15 @@ def sor_krylov(torch, nk, kernels, by_path):
             raise AssertionError(f"{name}: no {tol} within {cap}: {rel}")
     by_path["krylov"] = dict(kernels.LAUNCHES)
     require_launches("Krylov runs", by_path["krylov"])
+    profile = profile_krylov(torch, dhc, f32[2], krylov["AMG-PCG"]["iters"],
+                             krylov["AMG-PCG"]["ms_per_iter"])
     return {"nk": nk, "levels": ml.num_levels, "setup_s": setup_s,
             "pack_s": pack_s, "fwd_levels": fwd, "bwd_levels": bwd,
             "sor_cycles": k, "sor_res": sor_res, "sor_solve_s": solve_s,
             "sor_vcycle_ms": cycle_ms, "sor_vcycle_enqueue_ms": enqueue_ms,
             "sor_vcycle_kernels": n_kern, "sor_vcycle_busy_ms": busy_ms,
             "launches_per_sor_vcycle": per_cycle, "smoothers": smoothers,
-            "krylov": krylov}
+            "krylov": krylov, "profile": profile}
 
 
 def path_kernels(dh):
@@ -1469,9 +1507,9 @@ def interp_inputs(record):
         pm.par_interpolation = real
 
 
-def replay_error(what, dev, host):
+def replay_error(what, dev, host, tol=REPLAY_TOL):
     """max |dev - host| / max |host| of two CSRs with the same pattern;
-    fails when the patterns differ or the error passes REPLAY_TOL."""
+    fails when the patterns differ or the error passes ``tol``."""
     if dev.shape != host.shape or not (
             np.array_equal(dev.indptr, host.indptr)
             and np.array_equal(dev.indices, host.indices)):
@@ -1481,7 +1519,7 @@ def replay_error(what, dev, host):
         return 0.0
     err = float(np.abs(dev.data - host.data).max()
                 / np.abs(host.data).max())
-    if err > REPLAY_TOL:
+    if err > tol:
         raise AssertionError(f"{what}: device values {err:.3e} of max "
                              f"|host| from the host engine's")
     return err
@@ -2707,6 +2745,506 @@ def mc_tap_krylov(torch, hier15, bridge, mc16, kernels, by_path,
             "ranks": ranks, "run_s": wall_s, "card_cpu_rel_err": err}
 
 
+# phase 18: systems AMG and RAP sparsification in the Ruge-Stuben setup,
+# and the profiling layer. 18a and 18b run on three controllers of the
+# card (18a, 18b sparsified, 18b unsparsified), which set up and pack at
+# the same time, so that their setup and pack seconds are those of three
+# processes sharing the host and the card; then, once all are ready, each
+# does its timed work (18a's replay, the solve, the cycle) in its turn
+# while the others wait at a barrier, so that nothing else runs on the
+# host or the card while it is timed. 18a's unknown-based solve
+# (float32, b = A 1) must reach 1e-8 within SYS_CAP refinements (30 and 28
+# at 128 x 64 and 256 x 128 elements on a CPU, where the scalar setup of
+# the same matrix stalls above 1e-7); level 0's modified-classical
+# interpolation replayed through the device engine with the variables must
+# equal the host P's pattern and its values to SYS_REPLAY_TOL of max
+# |host|, and a SYS_CPU^2 float64 systems V-cycle on the card the CPU's to
+# SYS_REPLAY_TOL of max |x| (the whole solve's x to CARD_CPU_TOL; the gap
+# is printed after each of SYS_GAP_CYCLES cycles and the solve's last).
+# 18b: tests/test_multilevel.py::test_sparsify_large_2d's configuration at
+# (n/2)^2, its 1024^2 by default; the coarse operators' nnz over the fine
+# one's below SPARSIFY_NNZ_RATIO (the JAX test's bound), each sparsified
+# operator symmetric to SPARSIFY_SYM_TOL and its row sums the Galerkin
+# product's to SPARSIFY_ROWSUM_TOL, both relative to the product's largest
+# entry; both solves within SYS_CAP refinements
+P18_TIMEOUT = 600
+SYS_CAP = 100
+SYS_REPLAY_TOL = 1e-14
+SYS_CPU = 24
+SYS_GAP_CYCLES = (1, 6, 12)
+SPARSIFY_TOL = 0.4
+SPARSIFY_NNZ_RATIO = 2.5
+SPARSIFY_SYM_TOL = 1e-10
+SPARSIFY_ROWSUM_TOL = 1e-12
+PROFILE_REPS = 20
+PROFILE_PAIRS = 5
+
+
+def systems_setup(nx, ny):
+    """18a's setup: the scalar Q1 elasticity matrix of phase 12, CLJP +
+    modified classical, theta 0.25, Chebyshev(3), two unknowns a node
+    (the gallery's variable ids), host engines; with the
+    ``par_interpolation`` calls recorded (``interp_inputs``)."""
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
+    from raptor_tpu_torch.gallery.fem import par_fem
+    from raptor_tpu_torch.multilevel.par_multilevel import (
+        ParRugeStubenSolver)
+    A, variables = par_fem("elasticity", nx, ny, 1)
+    ml = ParRugeStubenSolver(0.25, CoarsenType.CLJP, InterpType.ModClassical,
+                             relax_type=RelaxType.Chebyshev)
+    ml.num_smooth_sweeps = 3
+    ml.num_variables = 2
+    ml.variables = variables
+    ml.rap_mode = ml.interp_mode = "host"
+    record = []
+    with interp_inputs(record):
+        ml.setup(A)
+    return A, ml, record
+
+
+def systems_replay(torch, ml, record):
+    """18a: level 0's modified-classical interpolation with its variables
+    through the device engine on the card, against the host engine's P."""
+    from raptor_tpu_torch.ruge_stuben import interpolation as itp
+    a, s, states, kind, ph, host_s = record[0]
+    t0 = time.perf_counter()
+    pd = itp.par_interpolation(a, s, states, kind, "device", "cuda",
+                               ml.num_variables, ml.levels[0].variables)
+    torch.cuda.synchronize()
+    dev_s = time.perf_counter() - t0
+    if itp.LAST_ENGINE["interp"] != "device":
+        raise AssertionError(f"systems replay: the device engine did not "
+                             f"run ({itp.LAST_ENGINE})")
+    err = replay_error("systems level 0 interpolation", pd.global_csr,
+                       ph.global_csr, SYS_REPLAY_TOL)
+    print(f"  level 0 modified classical with variables: device engine "
+          f"{dev_s:.3f} s, host {host_s:.3f} s, {err:.3e} of max |host| "
+          f"(nnz {ph.nnz})", flush=True)
+    return {"interp_device_s": dev_s, "interp_host_s": host_s,
+            "interp_err": err, "p_nnz": ph.nnz}
+
+
+def systems_reference_check(torch, n=SYS_CPU):
+    """18a: an n x n float64 systems hierarchy on the card and with the
+    plain versions on the CPU: one V-cycle from zero within
+    SYS_REPLAY_TOL of max |x|, and the solve to 1e-9 in the same cycles,
+    its residual histories within 1e-9 and x within CARD_CPU_TOL of
+    max |x| (each cycle's rounding, amplified by the operator's
+    conditioning, moves the solution of a whole solve further than one
+    cycle's: the gap after SYS_GAP_CYCLES cycles and the solve's last is
+    printed to show it). Returns (cycle error, solve error, the gaps by
+    cycle)."""
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    A, ml, _ = systems_setup(n, n)
+    b = A.mult(np.ones(A.global_num_rows))
+    out = {}
+    for dev in ("cuda", "cpu"):
+        dh = DeviceHierarchy(ml, dtype=torch.float64, lane_pad=128,
+                             device=dev)
+        dh.solve_tol = 1e-9
+        bd = dh.vector(b)
+        r = dh.solve(torch.zeros_like(bd), bd)
+        x, xs = torch.zeros_like(bd), {}
+        for k in range(1, max(SYS_GAP_CYCLES) + 1):
+            x = dh.vcycle(x, bd)
+            if k in SYS_GAP_CYCLES:
+                xs[k] = dh.host(x)
+        out[dev] = (xs, r, dh.host(r.x))
+    (xg, rg, sg), (xc, rc, sc) = out["cuda"], out["cpu"]
+
+    def gap(u, v):
+        return float(np.abs(u - v).max() / np.abs(v).max())
+    k = rc.n_iters
+    gaps = {c: gap(xg[c], xc[c]) for c in SYS_GAP_CYCLES}
+    gaps[k] = err = gap(sg, sc)
+    cyc_err = gaps[1]
+    print(f"reference: {n} x {n} float64 systems hierarchy, card against "
+          f"CPU: one V-cycle {cyc_err:.3e} of max |x|, the solve ({k} "
+          f"cycles to {rc.res[k]:.3e}) {err:.3e}; x apart after "
+          + ", ".join(f"{c} cycles {g:.3e}" for c, g in gaps.items()))
+    if (rg.n_iters != k or not cyc_err <= SYS_REPLAY_TOL
+            or not err <= CARD_CPU_TOL
+            or not np.allclose(rg.res[:k + 1], rc.res[:k + 1], rtol=1e-9,
+                               atol=1e-16)):
+        raise AssertionError(f"systems {n} x {n}: card {rg.n_iters} cycles,"
+                             f" CPU {k}; a cycle {cyc_err:.3e}, x "
+                             f"{err:.3e} apart")
+    return cyc_err, err, gaps
+
+
+def pack_float32(torch, ml):
+    """The float32 device hierarchy of a setup, with its seconds and
+    formats."""
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy(ml, dtype=torch.float32)
+    torch.cuda.synchronize()
+    return dh, {"pack_s": time.perf_counter() - t0,
+                "formats": dh.format_summary()}
+
+
+def systems_prepare(torch, nx, ny):
+    """18a's setup and pack (see the module docstring); returns the timed
+    work to run in this controller's turn (the replay, the solve, the
+    cycle)."""
+    t0 = time.perf_counter()
+    A, ml, record = systems_setup(nx, ny)
+    setup_s = time.perf_counter() - t0
+    del record[1:]
+    print(ml.print_hierarchy())
+    print(ml.print_setup_times())
+    out = {"nx": nx, "ny": ny,
+           "levels": [lvl.A.global_num_rows for lvl in ml.levels],
+           "nnz": [lvl.A.nnz for lvl in ml.levels], "setup_s": setup_s,
+           "setup_phase_totals": dict(ml.setup_times.times)}
+    print(f"systems setup at {nx} x {ny} (num_variables 2): {ml.num_levels} "
+          f"levels in {setup_s:.3f} s; coarsest variables "
+          f"{np.bincount(ml.levels[-1].variables).tolist()}")
+    dh, packed = pack_float32(torch, ml)
+    out.update(packed)
+    print(f"systems device hierarchy (float32): {out['pack_s']:.3f} s")
+    print("\n".join(out["formats"]))
+
+    def measure(kernels):
+        out["replay"] = systems_replay(torch, ml, record)
+        del record[:]
+        b = A.mult(np.ones(A.global_num_rows))
+        out["refinements"], out["launches"], out["solve_s_first"] = \
+            drive_solve(torch, dh, A, b, f"systems {nx} x {ny}, b = A 1",
+                        kernels, limit=SYS_CAP)
+        out.update(cycle_report(torch, dh, b, kernels))
+        return out
+    return measure
+
+
+@contextlib.contextmanager
+def galerkin_products(record):
+    """Record the Galerkin product each ``sparsify`` call of a setup
+    sparsifies (its ``ac`` argument), level by level."""
+    from raptor_tpu_torch.multilevel import par_multilevel as pm
+    real = pm.sparsify
+
+    def spy(a, p, i_mat, ap, ac, *args):
+        record.append(ac.global_csr)
+        return real(a, p, i_mat, ap, ac, *args)
+
+    pm.sparsify = spy
+    try:
+        yield
+    finally:
+        pm.sparsify = real
+
+
+def sparsify_setup(n, tol, record):
+    """18b's setup: n x n rotated anisotropic diffusion, CLJP + modified
+    classical, theta 0.25, Chebyshev(3), ``sparsify_tol = tol`` with the
+    symmetric rule, host engines, one shard; each Galerkin product it
+    sparsifies goes into ``record``."""
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.par_multilevel import (
+        ParRugeStubenSolver)
+    A = par_stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n), 1)
+    ml = ParRugeStubenSolver(0.25, CoarsenType.CLJP, InterpType.ModClassical,
+                             relax_type=RelaxType.Chebyshev)
+    ml.num_smooth_sweeps = 3
+    ml.sparsify_tol = tol
+    ml.rap_mode = ml.interp_mode = "host"
+    with galerkin_products(record):
+        ml.setup(A)
+    return A, ml
+
+
+def sparsify_checks(ml, products):
+    """Each sparsified coarse operator against the Galerkin product it was
+    sparsified from: symmetric, and with that product's row sums, both
+    relative to the product's largest entry. Returns the worst of each."""
+    sym = rows = 0.0
+    for g, coarse in zip(products, ml.levels[1:]):
+        g, c = g.to_scipy(), coarse.A.global_csr.to_scipy()
+        scale = abs(g).max()
+        sym = max(sym, abs(c - c.T).max() / scale)
+        rows = max(rows, float(np.abs(np.asarray(c.sum(axis=1))
+                                      - np.asarray(g.sum(axis=1))).max())
+                   / scale)
+    if sym > SPARSIFY_SYM_TOL or rows > SPARSIFY_ROWSUM_TOL:
+        raise AssertionError(f"sparsified operators: symmetric to {sym:.3e},"
+                             f" row sums to {rows:.3e}")
+    return sym, rows
+
+
+def sparsify_prepare(torch, n, tol):
+    """18b's setup and pack for one ``sparsify_tol`` (see the module
+    docstring); returns the measurement to run in this controller's
+    turn."""
+    key = "sparsified" if tol > 0 else "plain"
+    products = []
+    t0 = time.perf_counter()
+    A, ml = sparsify_setup(n, tol, products)
+    setup_s = time.perf_counter() - t0
+    nnz = [lvl.A.nnz for lvl in ml.levels]
+    ratio = sum(nnz[1:]) / nnz[0]
+    print(f"18b {key} setup at {n}^2: {ml.num_levels} levels in "
+          f"{setup_s:.3f} s, nnz {nnz}, coarse / fine nnz {ratio:.4f}; "
+          f"phases " + ", ".join(f"{k} {v:.3f} s" for k, v in sorted(
+              ml.setup_times.times.items())), flush=True)
+    out = {"n": n, "sparsify_tol": tol,
+           "levels": [lvl.A.global_num_rows for lvl in ml.levels],
+           "nnz": nnz, "coarse_fine_nnz": ratio, "setup_s": setup_s,
+           "setup_phase_totals": dict(ml.setup_times.times)}
+    if tol > 0:
+        if not ratio < SPARSIFY_NNZ_RATIO:
+            raise AssertionError(f"sparsified {n}^2: coarse / fine nnz "
+                                 f"{ratio}")
+        out["sym_rel_err"], out["rowsum_rel_err"] = sparsify_checks(
+            ml, products)
+        print(f"  sparsified operators symmetric to "
+              f"{out['sym_rel_err']:.3e}, row sums to "
+              f"{out['rowsum_rel_err']:.3e} of the Galerkin product's "
+              f"largest entry")
+    del products
+    dh, packed = pack_float32(torch, ml)
+    out.update(packed)
+
+    def measure(kernels):
+        b = A.mult(np.ones(A.global_num_rows))
+        out["refinements"], out["launches"], out["solve_s_first"] = \
+            drive_solve(torch, dh, A, b, f"{n}^2 {key}, b = A 1", kernels,
+                        limit=SYS_CAP)
+        out.update(cycle_report(torch, dh, b, kernels))
+        return out
+    return measure
+
+
+def p18_worker(comm, jobs):
+    """Phase 18a / 18b on one controller: job ``jobs[comm.rank]``, either
+    ("systems", nx, ny) or ("sparsify", n, tol). Its setup and pack run
+    while the others run theirs; once every controller is ready, each
+    runs its timed work in its turn, rank by rank, while the others wait
+    at a barrier. Returns its summary with what it printed (``log``)."""
+    import io
+
+    import torch
+    import torch.distributed as dist
+
+    from raptor_tpu_torch.device import kernels
+    job, *args = jobs[comm.rank]
+    prepare = {"systems": systems_prepare, "sparsify": sparsify_prepare}[job]
+    log = io.StringIO()
+    with contextlib.redirect_stdout(log):
+        t0 = time.perf_counter()
+        measure = prepare(torch, *args)
+        prep_s = time.perf_counter() - t0
+        # the profiler's first start in a process is slow: made here, so
+        # that a turn holds only its timed work
+        t0 = time.perf_counter()
+        device_kernels(torch, lambda: torch.ones(1, device="cuda").sum())
+        print(f"profiler started in {time.perf_counter() - t0:.3f} s")
+        for turn in range(comm.world):
+            dist.barrier()
+            if turn == comm.rank:
+                t0 = time.perf_counter()
+                out = measure(kernels)
+                turn_s = time.perf_counter() - t0
+        dist.barrier()
+    return {**out, "prep_s": prep_s, "turn_s": turn_s,
+            "log": log.getvalue()}
+
+
+def systems_and_sparsify(torch, bsr_size, n, bsr, by_path):
+    """18a and 18b: the card-against-CPU check of 18a here, then the
+    three setups on three controllers (``p18_worker``); each one's
+    output is printed here, and the solves' launches go to ``by_path``
+    (``systems_solve``, ``sparsify_sparsified``, ``sparsify_plain``).
+    ``bsr`` is phase 12's summary at ``bsr_size``, printed beside 18a."""
+    from raptor_tpu_torch.comm.launch import run_controllers
+    cyc_err, err, gaps = systems_reference_check(torch)
+    jobs = (("systems", *bsr_size), ("sparsify", n, SPARSIFY_TOL),
+            ("sparsify", n, 0.0))
+    t0 = time.perf_counter()
+    res = run_controllers(len(jobs), "chip_smoke:p18_worker", (jobs,),
+                          timeout=P18_TIMEOUT)
+    wall_s = time.perf_counter() - t0
+    for r in res:
+        print(r.pop("log"), end="")
+    print("18a / 18b controllers: setup and pack s " + " / ".join(
+        f"{r['prep_s']:.3f}" for r in res) + "; timed turn s " + " / ".join(
+        f"{r['turn_s']:.3f}" for r in res))
+    systems, sparsified, plain = res
+    systems.update(card_cpu_cycle_rel_err=cyc_err, card_cpu_rel_err=err,
+                   card_cpu_gap_by_cycle=gaps)
+    for key, r in (("systems_solve", systems),
+                   ("sparsify_sparsified", sparsified),
+                   ("sparsify_plain", plain)):
+        by_path[key] = r.pop("launches")
+    systems["bsr"] = {f: bsr[f] for f in (
+        "levels", "setup_s", "pack_s", "cycles", "vcycle_ms",
+        "vcycle_enqueue_ms", "vcycle_busy_ms", "launches_per_vcycle")}
+    print(f"18a beside phase 12's blocked AMG on the same matrix: levels "
+          f"{len(systems['levels'])} / {len(bsr['levels'])}, setup "
+          f"{systems['setup_s']:.3f} / {bsr['setup_s']:.3f} s, pack "
+          f"{systems['pack_s']:.3f} / {bsr['pack_s']:.3f} s, a cycle "
+          f"{systems['vcycle_ms']:.3f} ms float32 / {bsr['vcycle_ms']:.3f} "
+          f"ms float64 (busy {systems['vcycle_busy_ms']:.3f} / "
+          f"{bsr['vcycle_busy_ms']:.3f} ms), {systems['refinements']} "
+          f"refinements to 1e-8 / {bsr['cycles']} blocked V-cycles to 1e-6")
+    print(f"18b: refinements {sparsified['refinements']} sparsified / "
+          f"{plain['refinements']} unsparsified; coarse / fine nnz "
+          f"{sparsified['coarse_fine_nnz']:.4f} / "
+          f"{plain['coarse_fine_nnz']:.4f}; a cycle "
+          f"{sparsified['vcycle_ms']:.3f} / {plain['vcycle_ms']:.3f} ms, busy "
+          f"{sparsified['vcycle_busy_ms']:.3f} / "
+          f"{plain['vcycle_busy_ms']:.3f} ms ({len(jobs)} controllers, "
+          f"{wall_s:.3f} s)", flush=True)
+    return {"systems": systems,
+            "sparsify": {"sparsified": sparsified, "plain": plain},
+            "controllers_s": wall_s}
+
+
+def profile_levels(torch, dh, what, cyc):
+    """18c on a hierarchy of the run: ``print_times``' table, its rows by
+    ``profile_cycle(PROFILE_REPS)``, beside PROFILE_REPS V-cycles timed
+    the same way (``interleaved_seconds``) right after, PROFILE_PAIRS
+    such pairs in a row: the host's pace, which sets an enqueue-bound
+    cycle's, moves by a quarter within a second, so each table is held
+    to the cycle of its own pair. Prints the median of each entry over
+    the pairs and the median of the pairs' ratios of the cycle the rows
+    add up to (two smoothings, a residual and a transfer round trip a
+    level; the coarse solve and the vector updates left out) to the
+    timed cycle, beside the cycle ``cyc`` measured earlier; fails unless
+    every level's smoother and SpMV seconds are finite and above 0."""
+    from raptor_tpu_torch.multilevel.device_hierarchy import format_times
+    from raptor_tpu_torch.profiling.timers import interleaved_seconds
+    b = dh.levels[0].A.row_mask.to(dh.dtype)
+    t0 = time.perf_counter()
+    tables, summed, chain = [], [], []
+    for _ in range(PROFILE_PAIRS):
+        rows = dh.profile_cycle(reps=PROFILE_REPS)
+        tables.append(rows)
+        summed.append(1e3 * sum(2 * r["relax_s"] + r["spmv_s"]
+                                + r["transfer_s"] for r in rows[:-1]))
+        chain.append(1e3 * interleaved_seconds(
+            {"cycle": (lambda x: dh.vcycle(x, b), torch.zeros_like(b),
+                       None)}, PROFILE_REPS)["cycle"])
+    s = time.perf_counter() - t0
+    rows = [{k: (r[k] if k == "level" else
+                 statistics.median(t[i][k] for t in tables)) for k in r}
+            for i, r in enumerate(tables[0])]
+    bad = [r["level"] for t in tables for r in t
+           if not all(np.isfinite(r[k]) and r[k] > 0
+                      for k in ("relax_s", "spmv_s"))]
+    if bad:
+        raise AssertionError(f"{what} print_times: levels {bad} not > 0: "
+                             f"{tables}")
+    ratios = [u / v for u, v in zip(summed, chain)]
+    ratio = statistics.median(ratios)
+    print(f"18c print_times ({what}, reps {PROFILE_REPS}, the median of "
+          f"{PROFILE_PAIRS} tables, {s:.3f} s):\n{format_times(rows)}\n"
+          f"  levels summed / a cycle timed the same way right after, ms: "
+          + ", ".join(f"{u:.3f} / {v:.3f}" for u, v in zip(summed, chain))
+          + f"; the median ratio {ratio:.3f}; the cycle measured before "
+          f"{cyc['vcycle_ms']:.3f} ms, its levels {sum(cyc['level_ms']):.3f}"
+          f" ms", flush=True)
+    return {"rows": rows, "summed_ms": summed, "chain_cycle_ms": chain,
+            "summed_over_cycle": ratios, "median_ratio": ratio,
+            "vcycle_ms": cyc["vcycle_ms"], "level_ms": cyc["level_ms"],
+            "seconds": s}
+
+
+def trace_kernel_names(path):
+    """The kernel names of a Chrome trace (``device_trace``'s file)."""
+    with open(path) as f:
+        return [e.get("name", "") for e in json.load(f)["traceEvents"]
+                if e.get("cat") == "kernel"]
+
+
+def profile_krylov(torch, dh, b, iters, ms_per_iter):
+    """18c on phase 10's float32 Chebyshev(3) hierarchy: ``pcg_time_split``
+    of its AMG-PCG beside the measured iterations, and ``device_trace``
+    around one V-cycle, written under the git-ignored build/, whose
+    kernels must include DIA and BDIA."""
+    import pathlib
+    from raptor_tpu_torch.krylov.profile import pcg_time_split
+    from raptor_tpu_torch.profiling.timers import device_trace
+    A = dh.levels[0].A
+    split = pcg_time_split(A, b, dh.precond_pack())
+    print("18c pcg_time_split (AMG-PCG, ms an iteration): " + ", ".join(
+        f"{k} {v * 1e3:.3f}" for k, v in split.items())
+        + f"; measured {ms_per_iter:.3f} ms an iteration over {iters}")
+    if not all(np.isfinite(v) and v > 0 for v in split.values()):
+        raise AssertionError(f"pcg_time_split: {split}")
+    logdir = pathlib.Path(__file__).resolve().parent / "build" / \
+        "trace18"
+    xd = torch.zeros_like(b)
+    dh.vcycle(xd, b)
+    t0 = time.perf_counter()
+    with device_trace(str(logdir)) as path:
+        dh.vcycle(xd, b)
+    names = trace_kernel_names(path)
+    n_bdia = sum("bdia_spmv" in n for n in names)
+    n_dia = sum("dia_spmv" in n and "bdia_spmv" not in n for n in names)
+    print(f"18c device_trace: one V-cycle, {len(names)} kernels, DIA "
+          f"{n_dia}, BDIA {n_bdia}, {os.path.getsize(path)} bytes in "
+          f"{time.perf_counter() - t0:.3f} s ({path})", flush=True)
+    if not (n_dia and n_bdia):
+        raise AssertionError(f"device_trace names no DIA / BDIA kernel: "
+                             f"{sorted(set(names))[:20]}")
+    return {"pcg_time_split": split, "pcg_ms_per_iter": ms_per_iter,
+            "trace": {"kernels": len(names), "dia": n_dia, "bdia": n_bdia,
+                      "bytes": os.path.getsize(path)}}
+
+
+def comm_model(ml, word_bytes):
+    """18c: ``model_comm_plan`` and ``model_tap_plan`` on every level of
+    14b's 8-shard setup laid out as TAP_LAYOUT: TAP's bytes across hosts
+    at most the plain plan's and exactly its G step's (the deduplicated
+    values that cross, ``dcn_values``)."""
+    from raptor_tpu_torch.comm.plan import build_comm_plan
+    from raptor_tpu_torch.comm.tap import build_tap_plan
+    from raptor_tpu_torch.profiling.comm_model import (
+        CLASSES, model_comm_plan, model_tap_plan)
+    H, L = TAP_LAYOUT
+    t0 = time.perf_counter()
+    rows = []
+    for i, lvl in enumerate(ml.levels):
+        plain = model_comm_plan(build_comm_plan(lvl.A), word_bytes, L)
+        plan = build_tap_plan(lvl.A, H, L)
+        tap = model_tap_plan(plan, word_bytes)
+        g = tap.steps["G"].inter_host_bytes
+        if not (tap.inter_host_bytes <= plain.inter_host_bytes
+                and tap.inter_host_bytes == g
+                == plan.dcn_values * word_bytes):
+            raise AssertionError(f"comm model level {i}: TAP across hosts "
+                                 f"{tap.inter_host_bytes} B, G step {g} B, "
+                                 f"plain {plain.inter_host_bytes} B")
+        rows.append({"level": i, "plain": {
+            "msgs": sum(plain.n_msgs.values()),
+            "inter_host_bytes": plain.inter_host_bytes,
+            "intra_host_bytes": plain.intra_host_bytes,
+            "max_bytes_per_shard": plain.max_bytes_per_shard,
+            "max_bytes_per_host_pair": plain.max_bytes_per_host_pair},
+            "tap": {"msgs": sum(tap.n_msgs.values()),
+                    "inter_host_bytes": tap.inter_host_bytes,
+                    "intra_host_bytes": tap.intra_host_bytes,
+                    "max_bytes_per_shard": tap.max_bytes_per_shard,
+                    "max_bytes_per_host_pair": tap.max_bytes_per_host_pair,
+                    "msgs_by_step": {k: sum(st.n_msgs.get(c, 0)
+                                            for c in CLASSES)
+                                     for k, st in tap.steps.items()}}})
+    s = time.perf_counter() - t0
+    print(f"18c comm model, 14b on {H} x {L}, {word_bytes}-byte values "
+          f"({s:.3f} s): level, plain msgs / bytes across hosts / within, "
+          f"TAP the same:")
+    for r in rows:
+        p, t = r["plain"], r["tap"]
+        print(f"  {r['level']:2d}: {p['msgs']:4d} {p['inter_host_bytes']:9d}"
+              f" {p['intra_host_bytes']:9d} | {t['msgs']:4d} "
+              f"{t['inter_host_bytes']:9d} {t['intra_host_bytes']:9d}")
+    return {"layout": [H, L], "word_bytes": word_bytes, "levels": rows,
+            "seconds": s}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048, help="2-D grid side")
@@ -2821,6 +3359,7 @@ def main(argv=None):
     if hist1[-1] > 1e-8 or len(hist1) - 1 > 20:
         raise AssertionError(f"b = A 1: no 1e-8 within 20: {hist1}")
     cyc2 = cycle_report(torch, dh, b, kernels)
+    prof = {"2d": profile_levels(torch, dh, f"2-D {n}^2", cyc2)}
     k, res = reference_check(torch, aniso_setup, 64,
                              lambda m: np.random.default_rng(1)
                              .standard_normal(m))
@@ -2874,6 +3413,7 @@ def main(argv=None):
         raise AssertionError(f"3-D random x_true: no 1e-8: {hist3r}")
     solve_launches3 = dict(kernels.LAUNCHES)   # the random x_true solve
     cyc3 = cycle_report(torch, dh3, b3, kernels)
+    prof["3d"] = profile_levels(torch, dh3, f"3-D {n3}^3", cyc3)
     k, res = reference_check(torch, lap27_setup, 24, np.ones)
     print(f"reference: 24^3 float64 solve, card == CPU plain versions "
           f"({k} cycles to {res:.3e})")
@@ -2975,6 +3515,7 @@ def main(argv=None):
     t0 = time.perf_counter()
     example = tap_example(torch, kernels, by_path)
     dist, A14, ml14 = dist_flagship(torch, n // 2, kernels, by_path)
+    prof["comm"] = comm_model(ml14, 4)
     summary_tap = {"example": example, "distributed": dist,
                    "card_cpu_rel_err": tap_reference_check(torch)}
     phase("TAP and the distributed setup", t0)
@@ -3008,6 +3549,15 @@ def main(argv=None):
     summary_mct["seconds"] = time.perf_counter() - t0
     print(json.dumps({"phase17": summary_mct}))
     phase("TAP and Krylov across controllers", t0)
+
+    # 18. systems AMG, RAP sparsification and the profiling layer
+    t0 = time.perf_counter()
+    summary_18 = {**systems_and_sparsify(torch, args.bsr, n // 2,
+                                         summary_bsr["2d_bsr"], by_path),
+                  "profiling": {**prof, **summaryk["profile"]}}
+    summary_18["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase18": summary_18}))
+    phase("systems AMG, RAP sparsification, profiling", t0)
 
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
@@ -3050,7 +3600,13 @@ def main(argv=None):
                 "2d_bsr_dist": summary_spmd["bsr"]["launches_per_vcycle"][
                     name],
                 "2d_mc": summary_mc["launches_per_vcycle"][name],
-                "2d_mc_tap": summary_mct["launches_per_vcycle"][name]},
+                "2d_mc_tap": summary_mct["launches_per_vcycle"][name],
+                "2d_systems": summary_18["systems"]["launches_per_vcycle"][
+                    name],
+                "2d_sparsified": summary_18["sparsify"]["sparsified"][
+                    "launches_per_vcycle"][name],
+                "2d_unsparsified": summary_18["sparsify"]["plain"][
+                    "launches_per_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -3075,6 +3631,7 @@ def main(argv=None):
                       "bsr": summary_bsr, "setup_on_card": summary_card,
                       "tap": summary_tap, "spmd": summary_spmd,
                       "mc": summary_mc, "mc_tap": summary_mct,
+                      "phase18": summary_18,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

@@ -10,7 +10,9 @@ bit-identical hierarchies.
 
 - **Setup** (host): ``multilevel.par_multilevel.ParRugeStubenSolver``
   (classical or symmetric strength, RS/CLJP/Falgout/PMIS/HMIS splitting,
-  direct, modified-classical and extended+i interpolation) and
+  direct, modified-classical and extended+i interpolation, unknown-based
+  systems AMG with ``num_variables`` / ``variables``, and RAP
+  sparsification with ``sparsify_tol``, ``linalg.sparsify``) and
   ``aggregation.solver.ParSmoothedAggregationSolver`` (symmetric
   strength, MIS(2) aggregation, tentative and Jacobi-smoothed
   prolongation) and ``multilevel.bsr_hierarchy.ParBSRRugeStubenSolver``
@@ -48,6 +50,14 @@ bit-identical hierarchies.
   tensors the same wrappers run the plain PyTorch versions in
   ``device.formats``.
 
+- **Profiling**: ``DeviceHierarchy.profile_cycle`` / ``print_times``
+  (each level's smoother, SpMV and transfer round trip, by CUDA events),
+  ``krylov.profile.pcg_time_split`` (a PCG iteration's SpMV, exchange and
+  preconditioner seconds), ``profiling.timers.device_trace`` (a
+  ``torch.profiler`` Chrome trace) and ``profiling.comm_model`` (the
+  messages and bytes of a halo-exchange or TAP plan by size class and
+  locality).
+
 Device entry points take ``device=`` and default to ``"cuda"``; they raise
 when CUDA is asked for and absent.
 """
@@ -58,12 +68,20 @@ from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import (
     AggType, CoarsenType, InterpType, ProlongType, RelaxType, StrengthType)
 from raptor_tpu_torch.gallery.fem import par_fem
+from raptor_tpu_torch.krylov.profile import pcg_time_split
+from raptor_tpu_torch.linalg.sparsify import injection_matrix, sparsify
 from raptor_tpu_torch.multilevel.bsr_hierarchy import (
     BSRDeviceHierarchy, ParBSRRugeStubenSolver)
 from raptor_tpu_torch.multilevel.par_multilevel import ParRugeStubenSolver
+from raptor_tpu_torch.profiling.comm_model import (
+    CommStats, model_comm_plan, model_tap_plan)
+from raptor_tpu_torch.profiling.timers import device_trace
 
-__all__ = ["AggType", "BSRDeviceHierarchy", "CoarsenType", "InterpType",
-           "ParBSRRugeStubenSolver", "ParCSRMatrix", "ParRugeStubenSolver",
+__all__ = ["AggType", "BSRDeviceHierarchy", "CoarsenType", "CommStats",
+           "InterpType", "ParBSRRugeStubenSolver", "ParCSRMatrix",
+           "ParRugeStubenSolver",
            "ParSmoothedAggregationSolver", "Partition", "ProlongType",
-           "RelaxType", "StrengthType", "par_fem"]
+           "RelaxType", "StrengthType", "device_trace", "injection_matrix",
+           "model_comm_plan", "model_tap_plan", "par_fem", "pcg_time_split",
+           "sparsify"]
 __version__ = "0.1.0"

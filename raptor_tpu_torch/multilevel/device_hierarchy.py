@@ -49,6 +49,7 @@ from raptor_tpu_torch.device.par import (
     DeviceParCSR, bdia_tile_share, device_put_matrix, spmv)
 from raptor_tpu_torch.device.relax import RELAX_FNS, DeviceRelax, build_relax
 from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
+from raptor_tpu_torch.profiling.timers import interleaved_seconds, rescale
 from raptor_tpu_torch.ruge_stuben import par_setup as ps
 
 RELAX_NAME = {RelaxType.Jacobi: "jacobi", RelaxType.SOR: "sor",
@@ -80,6 +81,18 @@ class SolveResult:
     res: np.ndarray       # relative residual history, padded with -1
     n_iters: int
     stalled: bool         # stopped by the stagnation guard, not the tolerance
+
+
+def format_times(rows: List[dict]) -> str:
+    """``DeviceHierarchy.profile_cycle``'s rows as a table in ms, one line a
+    level (``print_times``)."""
+    out = [f"{'lvl':>3} {'relax(ms)':>10} {'spmv(ms)':>9} "
+           f"{'P^T..P(ms)':>11}"]
+    for r in rows:
+        out.append(f"{r['level']:>3} {r['relax_s'] * 1e3:>10.3f} "
+                   f"{r['spmv_s'] * 1e3:>9.3f} "
+                   f"{r['transfer_s'] * 1e3:>11.3f}")
+    return "\n".join(out)
 
 
 def _coarse_plumbing(part_c, Rc: int, first_shard: int,
@@ -427,6 +440,54 @@ class DeviceHierarchy:
         if return_device:
             return x, hist
         return self.host(x), hist
+
+    # --- per-level timing (track_times, par_multilevel.hpp:127-205) --------
+    def profile_cycle(self, reps: int = 50) -> List[dict]:
+        """Seconds of one application of each V-cycle building block, level
+        by level: the smoother (all its sweeps), the SpMV and the
+        restrict + prolong round trip P (P^T x), with the level's TAP plans
+        where the cycle uses them; ``transfer_s`` is 0 on the coarsest
+        level. The rows are the JAX package's (``{"level", "relax_s",
+        "spmv_s", "transfer_s"}``). Each block is a chain of ``reps``
+        applications after a warm-up, every result rescaled by
+        1 / (1 + max |y|) per shard so that the chain stays finite; only
+        the block is timed, not the rescale, and every level's chains run
+        in turn, one step of each a round; each time is the median of its
+        ``reps`` (``profiling.timers.interleaved_seconds``: CUDA events
+        around each application and one synchronize at the end on the
+        card, so a block whose enqueue outlasts its kernels counts its
+        enqueue, as in a cycle; the host clock on the CPU). The hierarchy
+        is left as it was.
+
+        Across controllers every controller would have to call it
+        together, block by block: not done yet (ROADMAP item 24)."""
+        if self.comm is not None:
+            raise NotImplementedError(
+                "profile_cycle across controllers: every controller would "
+                "have to call it together (ROADMAP Queue 1 item 24)")
+
+        chains = {}
+        for li, lvl in enumerate(self.levels):
+            b = lvl.A.row_mask.to(self.dtype)
+            chains[li, "relax_s"] = (
+                lambda x, lvl=lvl, b=b: self.relax(lvl, x, b),
+                torch.zeros_like(b), rescale)
+            chains[li, "spmv_s"] = (
+                lambda x, lvl=lvl: spmv(lvl.A, x, lvl.TA), b, rescale)
+            if lvl.P is not None:
+                chains[li, "transfer_s"] = (
+                    lambda x, lvl=lvl: spmv(lvl.P, spmv(lvl.Pt, x, lvl.TPt),
+                                            lvl.TP), b, rescale)
+        rows = [{"level": li, "relax_s": 0.0, "spmv_s": 0.0,
+                 "transfer_s": 0.0} for li in range(len(self.levels))]
+        for (li, key), t in interleaved_seconds(chains, reps).items():
+            rows[li][key] = t
+        return rows
+
+    def print_times(self, reps: int = 20) -> str:
+        """``profile_cycle``'s rows as the JAX package's table (print_times,
+        par_multilevel.hpp:580-612)."""
+        return format_times(self.profile_cycle(reps))
 
     # --- use as a Krylov preconditioner ----------------------------------------
     def precond_pack(self):

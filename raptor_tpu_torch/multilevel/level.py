@@ -6,6 +6,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
+
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 
 
@@ -13,3 +15,5 @@ from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 class Level:
     A: ParCSRMatrix
     P: Optional[ParCSRMatrix] = None
+    # systems AMG: the variable id of each row (None for a scalar setup)
+    variables: Optional[np.ndarray] = None

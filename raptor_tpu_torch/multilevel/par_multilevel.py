@@ -1,7 +1,8 @@
 """AMG setup (copy of raptor_tpu.multilevel.par_multilevel: Ruge-Stuben
 with RS/CLJP/Falgout/PMIS/HMIS coarsening, direct, modified-classical or
-extended+i interpolation, the Galerkin product on the host or on the
-device, and the setup phase timers).
+extended+i interpolation, unknown-based (systems) AMG, the Galerkin
+product on the host or on the device, RAP sparsification, and the setup
+phase timers).
 
 ``ParMultilevel`` (multilevel/par_multilevel.hpp:69-661) holds the knobs
 and the levels; ``ParRugeStubenSolver``
@@ -38,6 +39,7 @@ from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import (
     CFState, CoarsenType, InterpType, RelaxType, StrengthType)
 from raptor_tpu_torch.device import spgemm as dsp
+from raptor_tpu_torch.linalg.sparsify import injection_matrix, sparsify
 from raptor_tpu_torch.multilevel.level import Level
 from raptor_tpu_torch.profiling.timers import Profiler
 from raptor_tpu_torch.ruge_stuben import cf_splitting as cf
@@ -79,10 +81,9 @@ class ParMultilevel:
         self.weights: Optional[np.ndarray] = None
         self.solve_tol = 1e-07
         self.max_iterations = 100
-        # systems AMG (unknown-based strength and interpolation); the RS
-        # solver raises for anything but the scalar default
+        # systems AMG: the number of unknowns a node carries (the RS
+        # solver's ``variables`` give each row's)
         self.num_variables = 1
-        self.variables: Optional[np.ndarray] = None
         self.levels: List[Level] = []
         self.coarse_lu = None  # set by duplicate_coarse
         # setup phase timers (the reference's track_times,
@@ -218,16 +219,23 @@ class ParMultilevel:
 
 
 class ParRugeStubenSolver(ParMultilevel):
-    """ruge_stuben/par_ruge_stuben_solver.hpp:12-177, single-variable with
-    classical or symmetric strength: RS (RS below level 3, Falgout from
+    """ruge_stuben/par_ruge_stuben_solver.hpp:12-177, with classical or
+    symmetric strength: RS (RS below level 3, Falgout from
     there), CLJP, Falgout, PMIS or HMIS coarsening, and direct,
     modified-classical or extended+i interpolation. Extended+i is filtered
     with ``interp_filter`` under every coarsening
     (par_ruge_stuben_solver.hpp:121). ``setup_mode`` "global" (the
     default) runs each stage over the global matrix; "distributed" runs
-    the per-shard stages (``_extend_hierarchy_distributed``). Systems AMG
-    (``num_variables != 1``, ``variables``) and RAP sparsification
-    (``sparsify_tol > 0``) raise: ROADMAP Queue 1 item 21."""
+    the per-shard stages (``_extend_hierarchy_distributed``).
+
+    Systems AMG: with ``num_variables`` > 1 and ``variables`` (each fine
+    row's variable id, as ``gallery.fem.par_fem("elasticity", ...)``
+    returns them) strength and interpolation keep to same-variable
+    couplings, and each coarse level keeps its C-points' ids
+    (``Level.variables``). ``sparsify_tol`` > 0 sparsifies each Galerkin
+    product (``linalg.sparsify``; ``sparsify_symmetric`` keeps a symmetric
+    operator symmetric) in global mode; the distributed mode raises for
+    it, where the JAX package ignores it."""
 
     SPLITS = {CoarsenType.CLJP: cf.split_cljp,
               CoarsenType.Falgout: cf.split_falgout,
@@ -246,26 +254,48 @@ class ParRugeStubenSolver(ParMultilevel):
         self.coarsen_type = coarsen_type
         self.interp_type = interp_type
         self.interp_filter = 0.3  # applied to extended+i only
+        # systems AMG: the fine rows' variable ids (num_variables > 1)
+        self.variables: Optional[np.ndarray] = None
+        # RAP sparsification (par_multilevel.hpp:639): 0 turns it off
+        self.sparsify_tol = 0.0
+        self.sparsify_symmetric = True
 
     def setup(self, af: ParCSRMatrix) -> None:
         """Raises, before any level is built, for a knob the port does not
-        run."""
+        run or a ``variables`` that does not fit ``af``."""
         check_setup_mode(self.setup_mode)
-        unported = [k for k, on in (
-            ("num_variables", self.num_variables != 1),
-            ("variables", self.variables is not None),
-            ("sparsify_tol", getattr(self, "sparsify_tol", 0.0) > 0)) if on]
-        if unported:
-            raise NotImplementedError(
-                f"{', '.join(unported)} set: systems AMG and RAP "
-                f"sparsification are not ported yet (ROADMAP Queue 1 item "
-                f"21)")
-        if (self.setup_mode == "distributed"
-                and self.strength_type != StrengthType.Classical):
-            raise NotImplementedError(
-                "setup_mode='distributed' runs classical strength only, as "
-                "the JAX package's does")
+        if self.num_variables != 1 and (
+                self.variables is None
+                or len(self.variables) != af.global_num_rows):
+            raise ValueError(
+                f"num_variables = {self.num_variables} needs variables, "
+                f"one id for each of the {af.global_num_rows} rows")
+        if self.setup_mode == "distributed":
+            if self.strength_type != StrengthType.Classical:
+                raise NotImplementedError(
+                    "setup_mode='distributed' runs classical strength "
+                    "only, as the JAX package's does")
+            if self.sparsify_tol > 0:
+                raise NotImplementedError(
+                    "sparsify_tol > 0 with setup_mode='distributed': the "
+                    "JAX package's distributed setup ignores the knob; "
+                    "sparsify in global mode")
         super().setup(af)
+
+    def _level_variables(self, level_ctr: int) -> Optional[np.ndarray]:
+        """The variable ids of a level's rows: ``variables`` on the fine
+        level, then what the previous extension kept."""
+        lvl = self.levels[level_ctr]
+        if level_ctr == 0:
+            lvl.variables = self.variables
+        return lvl.variables
+
+    def _coarse_variables(self, variables, states):
+        """The C-points' variable ids (JAX par_multilevel.py:314-316); with
+        one variable the ids pass on unchanged, as there."""
+        if self.num_variables > 1:
+            return variables[np.asarray(states) == CFState.Selected]
+        return variables
 
     def extend_hierarchy(self) -> None:
         """par_ruge_stuben_solver.hpp:56-177: S -> split -> P -> RAP."""
@@ -273,8 +303,10 @@ class ParRugeStubenSolver(ParMultilevel):
             return self._extend_hierarchy_distributed()
         level_ctr = len(self.levels) - 1
         a = self.levels[level_ctr].A
+        variables = self._level_variables(level_ctr)
         with self.setup_times.phase("strength"):
-            s = strength(a, self.strength_type, self.strong_threshold)
+            s = strength(a, self.strength_type, self.strong_threshold,
+                         self.num_variables, variables)
         w = self.weights[:a.global_num_rows]
         with self.setup_times.phase("cf_splitting"):
             if self.coarsen_type in self.SPLITS:
@@ -287,7 +319,8 @@ class ParRugeStubenSolver(ParMultilevel):
         kind = self.INTERPOLATIONS[self.interp_type]
         with self.setup_times.phase("interpolation"):
             p = par_interpolation(a, s, states, kind, self.interp_mode,
-                                  self.device)
+                                  self.device, self.num_variables,
+                                  variables)
             if kind == "direct":
                 self._record_engine("interp", "host")
             else:
@@ -299,24 +332,39 @@ class ParRugeStubenSolver(ParMultilevel):
                                  p.partition)
         self.levels[level_ctr].P = p
         with self.setup_times.phase("RAP"):
-            _, ac = self._galerkin(a, p)
-        self.levels.append(Level(A=ac))
+            ap, ac = self._galerkin(a, p, need_ap=self.sparsify_tol > 0)
+        if self.sparsify_tol > 0:
+            # drop small Ac entries outside the minimal pattern into the
+            # diagonal (par_sparsify.cpp; arXiv:1512.04629)
+            with self.setup_times.phase("sparsify"):
+                ac = sparsify(a, p, injection_matrix(np.asarray(states)),
+                              ap, ac, self.sparsify_tol,
+                              self.sparsify_symmetric)
+                ac = ParCSRMatrix(ac.global_csr.canonicalize(),
+                                  ac.partition)
+        self.levels.append(Level(
+            A=ac, variables=self._coarse_variables(variables, states)))
 
     def _extend_hierarchy_distributed(self) -> None:
         """The same level extension through the per-shard + transport
         stages (``ruge_stuben.par_setup``): classical strength only; RS
         runs the distributed Falgout hybrid (interior RS + boundary CLJP)
         on every level. All on the host: ``level_engines`` records "host"
-        with the reason "setup_mode=distributed"."""
+        with the reason "setup_mode=distributed". Systems AMG reaches the
+        strength stage only: the three distributed interpolations take no
+        variables, as in the JAX package (JAX par_multilevel.py:355-381),
+        so its hierarchy is reproduced bit for bit."""
         level_ctr = len(self.levels) - 1
         a = self.levels[level_ctr].A
         n = a.global_num_rows
         w = self.weights[:n]
+        variables = self._level_variables(level_ctr)
         for step in ("interp", "rap"):
             self._record_engine(step, "host", "setup_mode=distributed")
 
         with self.setup_times.phase("strength"):
-            masks = ps.dist_classical_strength(a, self.strong_threshold)
+            masks = ps.dist_classical_strength(
+                a, self.strong_threshold, self.num_variables, variables)
             s = ps.strength_masks_to_par(a, masks)
 
         ct = self.coarsen_type
@@ -363,5 +411,6 @@ class ParRugeStubenSolver(ParMultilevel):
                 (level_ctr, ac.nnz, time.perf_counter() - t0))
         part_c = Partition(pg.n_cols, pg.n_cols, a.partition.n_shards,
                            col_bounds, col_bounds)
-        self.levels.append(Level(A=ParCSRMatrix(ac.canonicalize(),
-                                                part_c)))
+        self.levels.append(Level(
+            A=ParCSRMatrix(ac.canonicalize(), part_c),
+            variables=self._coarse_variables(variables, states)))

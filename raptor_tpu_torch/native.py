@@ -5,10 +5,11 @@ graph algorithms of the reference's setup phase behind a C ABI. This module
 compiles it, read-only, with the same flags as ``raptor_tpu.native``
 (``g++ -O3 -march=native -ffp-contract=off``) into the port's git-ignored
 build directory, and binds only the entry points the port's setup calls:
-classical and symmetric strength, the split pattern, the RS passes, the
-CLJP loop, mark-strong, modified-classical interpolation, glibc ``rand()``,
-the stencil assembly, the two SpGEMMs, the PMIS loop, extended+i
-interpolation and its pattern bound, the operand packing of the device
+classical (scalar or unknown-based) and symmetric strength, the split
+pattern, the RS passes, the CLJP loop, mark-strong, modified-classical
+interpolation, glibc ``rand()``, the stencil assembly, the two SpGEMMs,
+the PMIS loop, extended+i interpolation and its pattern bound, the
+operand packing of the device
 interpolation engines, the smoothers' greedy colouring and triangular
 level schedule, smoothed aggregation's MIS(2) and aggregation passes,
 the per-round weight update of the distributed CLJP splitting, and the
@@ -214,14 +215,26 @@ def pmis_main_loop(indptr, indices, col_ptr, col_indices, states,
                        _p(states, I64), _p(weights, F64))
 
 
-def _interp(fn, a_indptr, a_indices, a_data, strong, states, bound):
-    """Run one single-variable interpolation kernel into triplet buffers of
-    ``bound`` entries; returns the row-ordered (rows, cols, vals)."""
+def _variables(variables, num_variables):
+    """The (variables, num_variables) pair a kernel takes: the per-row
+    variable ids of unknown-based (systems) AMG, or a one-entry dummy and
+    1 when ``variables`` is None or ``num_variables`` is 1 (the kernels
+    then read no id)."""
+    if variables is None or num_variables == 1:
+        return np.zeros(1, dtype=np.int64), 1
+    return _c(variables), int(num_variables)
+
+
+def _interp(fn, a_indptr, a_indices, a_data, strong, states, bound,
+            variables=None, num_variables=1):
+    """Run one interpolation kernel into triplet buffers of ``bound``
+    entries; returns the row-ordered (rows, cols, vals). With
+    ``variables`` the weak sums count same-variable entries only."""
     a_indptr, a_indices = _c(a_indptr), _c(a_indices)
     a_data = _f(a_data)
     strong = np.ascontiguousarray(strong, dtype=np.int8)
     states = _c(states)
-    variables, num_variables = np.zeros(1, dtype=np.int64), 1
+    variables, num_variables = _variables(variables, num_variables)
     rows = np.empty(bound, dtype=np.int64)
     cols = np.empty(bound, dtype=np.int64)
     vals = np.empty(bound, dtype=np.float64)
@@ -232,25 +245,31 @@ def _interp(fn, a_indptr, a_indices, a_data, strong, states, bound):
     return rows[:nnz], cols[:nnz], vals[:nnz]
 
 
-def mod_classical_interp(a_indptr, a_indices, a_data, strong, states):
-    """Row-ordered (rows, cols, vals) triplets of single-variable
-    modified-classical P (par_interpolation.cpp:1012-1400)."""
+def mod_classical_interp(a_indptr, a_indices, a_data, strong, states,
+                         variables=None, num_variables: int = 1):
+    """Row-ordered (rows, cols, vals) triplets of modified-classical P
+    (par_interpolation.cpp:1012-1400), unknown-based with ``variables``."""
     return _interp(load().mod_classical_interp, a_indptr, a_indices, a_data,
-                   strong, states, len(a_indices) + len(a_indptr))
+                   strong, states, len(a_indices) + len(a_indptr),
+                   variables, num_variables)
 
 
-def extended_interp(a_indptr, a_indices, a_data, strong, states, bound):
-    """Row-ordered (rows, cols, vals) triplets of single-variable
-    extended+i P with the production semantics
-    (par_interpolation.cpp:301-1010); columns come unsorted within a row.
-    ``bound`` is ``interp_pattern_bound`` of the same inputs."""
+def extended_interp(a_indptr, a_indices, a_data, strong, states, bound,
+                    variables=None, num_variables: int = 1):
+    """Row-ordered (rows, cols, vals) triplets of extended+i P with the
+    production semantics (par_interpolation.cpp:301-1010), unknown-based
+    with ``variables``; columns come unsorted within a row. ``bound`` is
+    ``interp_pattern_bound`` of the same inputs."""
     return _interp(load().extended_interp, a_indptr, a_indices, a_data,
-                   strong, states, bound)
+                   strong, states, bound, variables, num_variables)
 
 
 def interp_pattern_bound(a_indptr, a_indices, strong, states) -> int:
     """Entry-count bound of the extended+i distance-2 pattern (one C pass
-    over A's entries; ``strong`` int8, ``states`` CF states)."""
+    over A's entries; ``strong`` int8, ``states`` CF states). It reads no
+    variables: the pattern is the strong graph's whatever the weak sums
+    count, so the bound holds for systems AMG too, as in the JAX
+    package."""
     lib = load()
     a_indptr, a_indices = _c(a_indptr), _c(a_indices)
     strong = np.ascontiguousarray(strong, dtype=np.int8)
@@ -317,9 +336,7 @@ def interp_dev_prep_mc(a_indptr, a_indices, a_data, strong, states,
     a_indptr, a_indices, a_data = _c(a_indptr), _c(a_indices), _f(a_data)
     strong = np.ascontiguousarray(strong, dtype=np.int8)
     states = _c(states)
-    if variables is None:
-        variables, num_variables = np.zeros(n, dtype=np.int64), 1
-    variables = _c(variables)
+    variables, num_variables = _variables(variables, num_variables)
     widths = np.zeros(3, dtype=np.int64)
     lib.interp_dev_widths_mc(n, _p(a_indptr, I64), _p(a_indices, I64),
                              _p(strong, I8), _p(states, I64),
@@ -387,14 +404,16 @@ def glibc_rand_doubles(seed: int, n: int) -> np.ndarray:
     return out
 
 
-def classical_strength_csr(indptr, indices, data, theta):
-    """Single-variable classical strength S as a CSR (threshold + compress
-    in one pass)."""
+def classical_strength_csr(indptr, indices, data, theta, variables=None,
+                           num_variables: int = 1):
+    """Classical strength S as a CSR (threshold + compress in one pass);
+    with ``variables`` (systems AMG) only same-variable off-diagonals set
+    a row's scale and can be strong."""
     lib = load()
     indptr, indices = _c(indptr), _c(indices)
     data = _f(data)
     n = len(indptr) - 1
-    variables, num_variables = np.zeros(1, dtype=np.int64), 1
+    variables, num_variables = _variables(variables, num_variables)
     out_indptr = np.empty(n + 1, dtype=np.int64)
     out_indices = np.empty(len(indices), dtype=np.int64)
     out_data = np.empty(len(indices))

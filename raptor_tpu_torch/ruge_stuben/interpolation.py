@@ -20,6 +20,7 @@ present). A device engine's error propagates; only its width cap
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import scipy.sparse as sp
@@ -116,17 +117,21 @@ def direct_interpolation(a: CSRMatrix, s: CSRMatrix,
 
 
 def mod_classical_interpolation(a: CSRMatrix, s: CSRMatrix,
-                                states: np.ndarray) -> CSRMatrix:
+                                states: np.ndarray, num_variables: int = 1,
+                                variables: Optional[np.ndarray] = None
+                                ) -> CSRMatrix:
     """For each F row i with weak sum w_i (diag + weak non-isolated
-    entries), distribute each strong-F neighbor's value over
-    the strong-C entries it shares with row i (entries of sign opposite to
-    its diagonal), then scale by -1/w_i."""
+    entries, of row i's variable when ``num_variables`` > 1), distribute
+    each strong-F neighbor's value over the strong-C entries it shares
+    with row i (entries of sign opposite to its diagonal), then scale by
+    -1/w_i."""
     n = a.n_rows
     col_to_new, n_coarse = _coarse_map(states)
     a_indptr, a_indices, a_data, strong = _strong_flags(a, s)
     rows, cols, vals = native.mod_classical_interp(
         a_indptr, a_indices, a_data, strong,
-        np.ascontiguousarray(states, dtype=np.int64))
+        np.ascontiguousarray(states, dtype=np.int64), variables,
+        num_variables)
     # entries come row-ordered, unique and column-ascending
     indptr, cols, vals = native.finalize_interp(n, rows, cols, vals,
                                                 col_to_new, do_sort=False)
@@ -134,7 +139,9 @@ def mod_classical_interpolation(a: CSRMatrix, s: CSRMatrix,
 
 
 def extended_interpolation(a: CSRMatrix, s: CSRMatrix,
-                           states: np.ndarray) -> CSRMatrix:
+                           states: np.ndarray, num_variables: int = 1,
+                           variables: Optional[np.ndarray] = None
+                           ) -> CSRMatrix:
     """Extended+i (distance-2) interpolation with the production semantics
     of par_interpolation.cpp:301-1010: P's row pattern is the strong C
     neighbours of i and those of its strong F neighbours; each strong F
@@ -142,7 +149,8 @@ def extended_interpolation(a: CSRMatrix, s: CSRMatrix,
     folding A_(col,i) back into the weak sum. Weak entries whose column is
     in the pattern add to that coefficient (:727-732), NoNeighbors columns
     stay out of the weak sum (:835), and the division by the weak sum is
-    guarded by zero_tol (:949)."""
+    guarded by zero_tol (:949). With ``num_variables`` > 1 the weak sums
+    count same-variable entries only."""
     n = a.n_rows
     col_to_new, n_coarse = _coarse_map(states)
     a_indptr, a_indices, a_data, strong = _strong_flags(a, s)
@@ -150,7 +158,8 @@ def extended_interpolation(a: CSRMatrix, s: CSRMatrix,
     bound = native.interp_pattern_bound(a_indptr, a_indices, strong,
                                         states64)
     rows, cols, vals = native.extended_interp(a_indptr, a_indices, a_data,
-                                              strong, states64, bound)
+                                              strong, states64, bound,
+                                              variables, num_variables)
     # the pattern is discovered out of order: sort within each row
     indptr, cols, vals = native.finalize_interp(n, rows, cols, vals,
                                                 col_to_new, do_sort=True)
@@ -227,16 +236,28 @@ def _record(engine: str, reason: str = "") -> None:
 
 
 def _device_dispatch(kind: str, a: CSRMatrix, s: CSRMatrix, states,
-                     engine: str, level_nnz: int, device) -> CSRMatrix:
+                     engine: str, level_nnz: int, device,
+                     num_variables: int = 1,
+                     variables: Optional[np.ndarray] = None) -> CSRMatrix:
     """P of ``kind`` ("extended" or "mod_classical") by the selected
     engine. Unlike the JAX package's dispatch, no error of a device engine
-    is caught: the host kernel runs only when the engine was not chosen or
-    when its width cap (``InterpOverflow``) was hit."""
+    is caught: the host kernel runs only when the engine was not chosen,
+    when its width cap (``InterpOverflow``) was hit, or, for extended+i,
+    whose device engine is single-variable (as JAX's), under systems
+    AMG."""
     reason = ""
-    if _use_device_interp(engine, level_nnz, device):
+    use = _use_device_interp(engine, level_nnz, device)
+    if use and kind == "extended" and num_variables != 1:
+        use, reason = False, (f"num_variables={num_variables}: the device "
+                              f"extended+i engine is single-variable")
+    if use:
         strong, col_to_new, n_coarse = _device_interp_inputs(a, s, states)
-        run = (dinterp.extended_interp_device if kind == "extended"
-               else dinterp.mod_classical_interp_device)
+        if kind == "extended":
+            run = dinterp.extended_interp_device
+        else:
+            run = functools.partial(dinterp.mod_classical_interp_device,
+                                    variables=variables,
+                                    num_variables=num_variables)
         try:
             p = run(a, strong, np.asarray(states), col_to_new, n_coarse,
                     device=device)
@@ -246,7 +267,7 @@ def _device_dispatch(kind: str, a: CSRMatrix, s: CSRMatrix, states,
             _record("device")
             return p
     _record("host", reason)
-    return _KINDS[kind](a, s, states)
+    return _KINDS[kind](a, s, states, num_variables, variables)
 
 
 _extended_dispatch = functools.partial(_device_dispatch, "extended")
@@ -262,18 +283,22 @@ _DISPATCH = {"mod_classical": _mod_classical_dispatch,
 
 def par_interpolation(a: ParCSRMatrix, s: ParCSRMatrix, states,
                       kind: str = "direct", engine: str = "host",
-                      device="cuda") -> ParCSRMatrix:
+                      device="cuda", num_variables: int = 1,
+                      variables: Optional[np.ndarray] = None
+                      ) -> ParCSRMatrix:
     """P of the given ``kind`` ("direct", "mod_classical" or "extended")
     with the reference's partition: A's rows, and coarse columns owned
     where their fine C-points live. ``engine`` ("host", "device" or
     "auto") selects the engine of modified classical and extended+i;
-    ``device`` is where a device engine runs."""
+    ``device`` is where a device engine runs. ``num_variables`` and
+    ``variables`` (systems AMG) reach modified classical and extended+i;
+    direct interpolation ignores them, as the JAX package's does."""
     if kind not in _KINDS:
         raise ValueError(f"interpolation kind {kind!r}; the port runs "
                          f"{sorted(_KINDS)}")
     if kind in _DISPATCH:
         p = _DISPATCH[kind](a.global_csr, s.global_csr, states, engine,
-                            a.nnz, device)
+                            a.nnz, device, num_variables, variables)
     else:
         p = _KINDS[kind](a.global_csr, s.global_csr, states)
     row_bounds = a.partition.row_bounds

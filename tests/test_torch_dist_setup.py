@@ -2,8 +2,9 @@
 ``comm.transport.InProcessTransport``) against the JAX package's same
 stages on the same input, bit for bit, and against the port's own global
 stages (the RS cases of tests/test_dist_setup.py); ``setup_mode =
-"distributed"`` hierarchies against JAX's level by level; and the knobs
-the port does not run, which raise. The smoothed-aggregation and blocked
+"distributed"`` hierarchies against JAX's level by level; the systems and
+sparsification knobs in global mode; and the knobs the port does not run,
+which raise. The smoothed-aggregation and blocked
 stages are in tests/test_torch_dist_sa.py.
 """
 
@@ -379,13 +380,37 @@ def _grid(n_shards=2):
                                 n_shards)
 
 
-@pytest.mark.parametrize("knob,value", [
-    ("num_variables", 2), ("variables", np.zeros(256, dtype=np.int64)),
-    ("sparsify_tol", 0.01)])
-def test_rs_systems_and_sparsify_raise(knob, value):
+@pytest.mark.parametrize("knobs", [
+    {"num_variables": 2, "variables": np.arange(256, dtype=np.int64) % 2},
+    {"variables": np.zeros(256, dtype=np.int64)},
+    {"sparsify_tol": 0.01}], ids=["num_variables", "variables",
+                                  "sparsify_tol"])
+def test_rs_systems_and_sparsify_run_in_global_mode(knobs):
+    """The knobs that raised until systems AMG and RAP sparsification were
+    ported now build JAX's global hierarchy bit for bit."""
+    tml = TRS(0.25, tt.CoarsenType.HMIS, tt.InterpType.Extended)
+    jml = JRS(0.25, jt.CoarsenType.HMIS, jt.InterpType.Extended)
+    jml.rap_mode = jml.interp_mode = "host"
+    for ml in (tml, jml):
+        for k, v in knobs.items():
+            setattr(ml, k, v)
+    tml.setup(_grid())
+    jml.setup(jst.par_stencil_grid(jst.diffusion_stencil_2d(*ANISO),
+                                   (16, 16), 2))
+    assert tml.num_levels == jml.num_levels > 2
+    for tl, jl in zip(tml.levels, jml.levels):
+        _bytes_equal(tl.A.global_csr, jl.A.global_csr)
+        if jl.P is not None:
+            _bytes_equal(tl.P.global_csr, jl.P.global_csr)
+
+
+def test_distributed_sparsify_raises():
+    """The JAX package's distributed setup ignores ``sparsify_tol``; the
+    port's refuses it before any level is built."""
     ml = TRS(0.25, tt.CoarsenType.HMIS, tt.InterpType.Extended)
-    setattr(ml, knob, value)
-    with pytest.raises(NotImplementedError, match="item 21"):
+    ml.setup_mode = "distributed"
+    ml.sparsify_tol = 0.01
+    with pytest.raises(NotImplementedError, match="sparsify_tol"):
         ml.setup(_grid())
     assert ml.levels == []
 
