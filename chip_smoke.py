@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (raptor_tpu_torch) through its main path
 on one NVIDIA card, and check what comes out.
 
-    python3 chip_smoke.py [--n 2048] [--n3 128] [--nk 512] [--sa 128 64]
-                          [--bsr 1024 512] [--seed 0]
+    python3 chip_smoke.py [--n 2048] [--n3 128] [--card-n3 96] [--nk 256]
+                          [--sa 128 64] [--bsr 1024 512] [--seed 0]
 
 Phases, each printed as it ends; any failure ends the run with a non-zero
 exit code and no result line:
@@ -42,8 +42,8 @@ exit code and no result line:
 10. 2-D SOR and Krylov: nk x nk rotated anisotropic diffusion, CLJP +
    modified classical, theta 0.25 (the reference's examples/example.py and
    examples/benchmark_pcg.py). The example run: SOR(1), weight 1, a
-   float64 hierarchy, b = A 1, solved to 1e-7 (at 512^2 in at most the
-   JAX package's 36 V-cycles), with
+   float64 hierarchy, b = A 1, solved to 1e-7 (at 256^2, or 512^2, in at
+   most the JAX package's 29, or 36, V-cycles), with
    the launches, device time, enqueue time and profiler busy time of one
    cycle and each level's forward and backward schedule levels, and a
    small SOR solve on the card and on the CPU, which must agree. Then
@@ -68,8 +68,8 @@ exit code and no result line:
    BDIA on the 128^3 A1 and P1, the sorted scatter on the 64^3 P^T0;
 12. blocked AMG, at ``--bsr`` and at 128 x 64 elements (bench.py:bench_bsr:
    Q1 elasticity, the blocked V-cycle to 1e-6 and BSR-PCG to 1e-10);
-13. setup on the card: phase 6's configuration at n3^3, phase 3's at
-   (n/2)^2 and phase 11's at its second side, set up with the default
+13. setup on the card: phase 6's configuration at card_n3^3, phase 3's
+   at (n/2)^2 and phase 11's at its second side, set up with the default
    engines ("auto" on the card: the device Galerkin product and
    interpolation on every level of at least 2,000,000 nonzeros; phases 3,
    6, 10 and 11 pin the host engines, as the JAX package's counts they are
@@ -158,7 +158,8 @@ exit code and no result line:
    12's Q1 elasticity matrix at ``--bsr`` as a scalar CSR, unknown-based:
    ``num_variables = 2`` with the gallery's variable ids, CLJP + modified
    classical, theta 0.25, Chebyshev(3), host engines; float32
-   ``solve_mixed`` to 1e-8 with b = A 1 (at most 100 refinements), the
+   ``solve_mixed`` to 1e-8 with b = A 1 (at most the JAX package's
+   refinements + 1), the
    setup's phase split, pack seconds, one cycle's device / enqueue / busy
    ms and launches, beside phase 12's blocked AMG on the same matrix;
    level 0's modified-classical interpolation with the variables replayed
@@ -184,7 +185,28 @@ exit code and no result line:
    level of 14b's setup on 2 x 4 (TAP's bytes across hosts at most the
    plain plan's and equal to its G step's). (c)'s parts run where those
    hierarchies are held, and phase 18's JSON line (``phase18``) carries
-   them.
+   them;
+19. the real-matrix path (the reference's examples/benchmark_nek5000.py
+   flow) at 512^2 elements of the gallery's SIPG DG diffusion (1,048,576
+   rows, 8 shards): assembled (in under 20 s), written to a ``.pm`` file
+   and read back bit for bit (the ``.mtx`` round trip at 128^2); the
+   edge cut and halo of the block, RCM and k-way partitions, the k-way
+   repartition, the shards placed by ``Topology(8, ppn=4)``, the diagonal
+   scaling; the distributed repartition (label propagation and the row
+   migration over the in-process transport) equal to ``make_contiguous``
+   on its labels bit for bit, and the k-way labels migrated over the
+   transport equal to the global repartition; RS + modified classical,
+   theta 0.25,
+   Chebyshev(2), host engines, saved and reloaded equal level by level,
+   and only the reloaded hierarchy packed (float64); AMG-PCG to 1e-8 in
+   at most the JAX package's iterations + 1 with its levels, nnz and
+   shard sizes, the unscaled x's residual on the original operator below
+   1e-7, the formats and shard sizes of every level, the launches of one
+   iteration of the solve, the device / enqueue / busy ms and launches by
+   kernel name of a proxy step that launches as much; the kernels of
+   A0 and P0 against their plain versions; a 32^2 pipeline solved on the
+   card and on the CPU, x within 1e-12 of max |x|. Its JSON line
+   (``dg_512``) comes before the kernel list.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -427,10 +449,11 @@ def kernel_input_len(M):
 def kernel_spec(name, M, x):
     """(kernel call, plain call, bytes, operations) of one kernel on one
     packed operator: each input read once and the output written once, and
-    a multiply-add per stored slot (per slot of a listed tile for BDIA,
-    which reads no other tile; per lane of a real BELL slot; per entry with
-    a value for the sorted-scatter and windowed-ELL kernels, which read no
-    entry past a slot's count and no padded slot)."""
+    a multiply-add per stored slot (per nonzero for BDIA, with its value,
+    its lane index and the tile list, whatever share of the listed tiles'
+    slots it fills; per lane of a real BELL slot; per entry with a value
+    for the sorted-scatter and windowed-ELL kernels, which read no entry
+    past a slot's count and no padded slot)."""
     from raptor_tpu_torch.device import formats, kernels
     S, C = x.shape
     isz = M.on_vals.element_size()
@@ -441,16 +464,18 @@ def kernel_spec(name, M, x):
         nbytes = S * ((K * R + C + R) * isz + 4 * K)
         ops = 2 * S * K * R
     elif name == "bdia_spmv":
-        # the kernel reads the listed tiles of the row blocks below
-        # on_rows_pad, the list itself and one offset per plane
+        # the function needs each nonzero's value and 1-byte lane index,
+        # the tile list and one offset per plane (the kernel reads every
+        # slot of a listed tile: check_kernel's tile figures)
         args = (M.bd_offsets, M.bd_idx, M.bd_vals, x, M.bd_padb,
                 M.on_rows_pad)
         kern = ((M.bd_offsets, M.bd_off) + args[1:]
                 + (M.bd_tptr, M.bd_tplane))
         tiles = int(M.bd_tptr[:, -1].sum())
-        nbytes = (tiles * 128 * (isz + 1) + 4 * (M.bd_tptr.numel() + tiles)
+        nnz = int((M.bd_vals != 0).sum())
+        nbytes = (nnz * (isz + 1) + 4 * (M.bd_tptr.numel() + tiles)
                   + S * (C + M.on_rows_pad) * isz + 4 * len(M.bd_offsets))
-        ops = 2 * tiles * 128
+        ops = 2 * nnz
     elif name == "wind_ell_spmv":
         # the plain version of the same function on the same sliced arrays
         kern = (M.wl_ws, M.wl_perm, M.wl_sptr, M.wl_crel, M.wl_cvals, x,
@@ -500,7 +525,7 @@ def check_kernel(torch, name, M, host, gen):
     each waited for, which holds the host's launch latency), as is the
     plain version."""
     from raptor_tpu_torch.device import kernels
-    from raptor_tpu_torch.device.par import bdia_tile_share
+    from raptor_tpu_torch.device.par import bdia_tile_share, packed_bytes
     dt = str(M.dtype).replace("torch.", "")
     x = torch.randn((M.n_shards, kernel_input_len(M)), generator=gen,
                     device="cuda").to(M.dtype)
@@ -519,16 +544,28 @@ def check_kernel(torch, name, M, host, gen):
         "plain_ms": time_ms(torch, plain),
         "library_ms": torch_sparse(torch, host, M.dtype, gen),
         "bound_ms": bound_ms, "bound_by": bound_by, "bytes": int(nbytes)}
+    # and a layout figure, not a bound: the time of reading the packed
+    # arrays whole (``packed_bytes``), x and the output at the memory rate
+    packed = packed_bytes(M) + M.n_shards * (
+        x.shape[1] + M.rows_pad) * M.on_vals.element_size()
+    c.update(packed_bytes=int(packed),
+             packed_read_ms=packed / PEAK_BYTES_PER_S * 1e3)
     if name == "bdia_spmv":
-        # and the bound of a kernel that streams every plane of the row
-        # blocks below on_rows_pad (the one-thread-per-row BDIA kernel)
+        # and two layout figures: the least time of a kernel that reads
+        # every slot of the listed tiles (this one) and of one that streams
+        # every plane of the row blocks below on_rows_pad (the
+        # one-thread-per-row BDIA kernel)
         S, P = M.bd_vals.shape[:2]
         isz = M.bd_vals.element_size()
         dense = (S * P * M.on_rows_pad * (isz + 1) + 4 * P
                  + S * (x.shape[1] + M.on_rows_pad) * isz)
         tiles = int(M.bd_tptr[:, -1].sum())
-        c.update(tiles=tiles, tile_share=bdia_tile_share(M),
-                 tile_fill=int((M.bd_vals != 0).sum()) / max(1, 128 * tiles),
+        nnz = ops // 2
+        tile_bytes = nbytes + (128 * tiles - nnz) * (isz + 1)
+        c.update(tiles=tiles, tile_share=bdia_tile_share(M), nnz=nnz,
+                 tile_fill=nnz / max(1, 128 * tiles),
+                 tile_bytes=tile_bytes,
+                 tile_bound_ms=bound(tile_bytes, 2 * 128 * tiles, dt)[0],
                  all_planes_bytes=dense,
                  all_planes_bound_ms=bound(dense, 2 * S * P * M.on_rows_pad,
                                            dt)[0])
@@ -569,8 +606,10 @@ def check_kernel(torch, name, M, host, gen):
 def detail(c):
     """The layout's figures of one check, for its printed line."""
     if "tiles" in c:
-        return (f", {c['tiles']} tiles = {c['tile_share']:.1%}, "
-                f"{c['tile_fill']:.1%} of their slots filled; every plane "
+        return (f", {c['nnz']} nonzeros in {c['tiles']} tiles = "
+                f"{c['tile_share']:.1%}, {c['tile_fill']:.1%} of their slots "
+                f"filled; every slot of the listed tiles {c['tile_bytes']} B, "
+                f"bound {c['tile_bound_ms']:.4f} ms; every plane "
                 f"{c['all_planes_bytes']} B, bound "
                 f"{c['all_planes_bound_ms']:.4f} ms")
     if "real_slots" in c:
@@ -597,13 +636,14 @@ def detail(c):
 
 
 def run_checks(torch, cases, lane_pad, gen, checks):
-    """``cases``: (kernel, label, float32 operator, host, embed); each is
-    checked as it is and repacked in float64 in the same format."""
+    """``cases``: (kernel, label, packed operator, host, embed); each is
+    checked in float32 and float64, as it is in its own dtype and repacked
+    in the same format in the other."""
     from raptor_tpu_torch.device.par import device_put_matrix
     for name, label, M32, host, embed in cases:
         for dtype in (torch.float32, torch.float64):
             M = M32
-            if dtype == torch.float64:
+            if dtype != M32.dtype:
                 M = device_put_matrix(
                     host, dtype=dtype, lane_pad=lane_pad,
                     embed=embed if M32.embed_kind != "none" else None,
@@ -620,7 +660,7 @@ def run_checks(torch, cases, lane_pad, gen, checks):
                     and torch.equal(M.wl_sptr, M32.wl_sptr)):
                 raise AssertionError(f"{label}: the {dtype} pack lists "
                                      f"other tiles, slots or entries than "
-                                     f"the float32 one")
+                                     f"the {M32.dtype} one")
             c = check_kernel(torch, name, M, host, gen)
             c["operator"] = label
             checks.setdefault(name, []).append(c)
@@ -629,7 +669,9 @@ def run_checks(torch, cases, lane_pad, gen, checks):
                   f"call {c['call_ms']:.4f} ms), plain "
                   f"{c['plain_ms']:.4f} ms, torch.sparse "
                   f"{c['library_ms']:.4f} ms, bound {c['bound_ms']:.4f} ms "
-                  f"({c['bytes']} B{detail(c)})", flush=True)
+                  f"({c['bytes']} B{detail(c)}; the packed arrays "
+                  f"{c['packed_bytes']} B, read whole in "
+                  f"{c['packed_read_ms']:.4f} ms)", flush=True)
             del M
 
 
@@ -743,11 +785,12 @@ def require_launches(what, launches, names=("dia_spmv", "bdia_spmv")):
                              f"{idle} ({launches})")
 
 
-# phase 10: the JAX package's V-cycles to 1e-7 of the SOR example at 512^2
-# (``JAX_PLATFORMS=cpu python examples/example.py 512 1``), the most the
+# phase 10: the JAX package's V-cycles to 1e-7 of the SOR example at side
+# N (``JAX_PLATFORMS=cpu python examples/example.py N 1``), the most the
 # port may take there; the smoothers beside SOR, each one solve of at most
-# SMOOTHER_CYCLES V-cycles
-SOR_CYCLES_512 = 36
+# SMOOTHER_CYCLES V-cycles. The phase runs at 256^2 (512^2 until PR 16,
+# cut to make room for phase 19)
+SOR_CYCLES = {512: 36, 256: 29}
 SMOOTHERS = ("SSOR", "Jacobi", "L1Jacobi", "MCSOR", "MCSSOR")
 SMOOTHER_CYCLES = 10
 
@@ -1221,7 +1264,7 @@ def sor_krylov(torch, nk, kernels, by_path):
     if not (np.isfinite(x).all() and x.shape == (n,)):
         raise AssertionError("SOR solution is not finite or has the wrong "
                              "shape")
-    limit = SOR_CYCLES_512 if nk == 512 else dh.max_iterations
+    limit = SOR_CYCLES.get(nk, dh.max_iterations)
     if (r.res[k] > 1e-7 or k > limit or r.stalled
             or not np.isclose(relres, r.res[k], rtol=1e-6)):
         raise AssertionError(f"SOR: no 1e-7 within {limit} cycles: "
@@ -1333,10 +1376,11 @@ def sor_krylov(torch, nk, kernels, by_path):
             "krylov": krylov, "profile": profile}
 
 
-def path_kernels(dh):
+def path_kernels(dh, residual=True):
     """The kernels the solve of this hierarchy launches: one per format of
-    its operators, and DIA for the float64 residual of the stencil A."""
-    fmts = {"dia"}
+    its operators, and (``residual``) DIA for the float64 residual of the
+    stencil A."""
+    fmts = {"dia"} if residual else set()
     for lvl in dh.levels:
         fmts |= {m.on_format for m in (lvl.A, lvl.P, lvl.Pt) if m is not None}
     return sorted(FORMAT_KERNEL[f] for f in fmts if f in FORMAT_KERNEL)
@@ -1478,7 +1522,11 @@ def time_transfer(torch, packed, gen):
 # RS solves (b = A 1, float32, to 1e-8) must take at most CARD_RS_CAP
 # refinements; SA at most the JAX package's count + CARD_SA_SLACK, the
 # spread between the engines that tests/test_device_interp.py allows; a
-# replayed level's values must be within REPLAY_TOL of max |host| (float64)
+# replayed level's values must be within REPLAY_TOL of max |host| (float64).
+# The 3-D setup runs at --card-n3 (96^3; phase 6's --n3, 128^3, until
+# PR 16, cut to make room for phase 19): its level 0 (23.9 M nonzeros) and
+# levels 1-2 stay above the device engines' gate. RS holds no count of the
+# JAX package here, only the cap.
 CARD_RS_CAP = 20
 CARD_SA_SLACK = 2
 REPLAY_TOL = 1e-12
@@ -2753,9 +2801,8 @@ def mc_tap_krylov(torch, hier15, bridge, mc16, kernels, by_path,
 # does its timed work (18a's replay, the solve, the cycle) in its turn
 # while the others wait at a barrier, so that nothing else runs on the
 # host or the card while it is timed. 18a's unknown-based solve
-# (float32, b = A 1) must reach 1e-8 within SYS_CAP refinements (30 and 28
-# at 128 x 64 and 256 x 128 elements on a CPU, where the scalar setup of
-# the same matrix stalls above 1e-7); level 0's modified-classical
+# (float32, b = A 1) must reach 1e-8 within SYS_REFINEMENTS + 1
+# refinements; level 0's modified-classical
 # interpolation replayed through the device engine with the variables must
 # equal the host P's pattern and its values to SYS_REPLAY_TOL of max
 # |host|, and a SYS_CPU^2 float64 systems V-cycle on the card the CPU's to
@@ -2766,9 +2813,46 @@ def mc_tap_krylov(torch, hier15, bridge, mc16, kernels, by_path,
 # one's below SPARSIFY_NNZ_RATIO (the JAX test's bound), each sparsified
 # operator symmetric to SPARSIFY_SYM_TOL and its row sums the Galerkin
 # product's to SPARSIFY_ROWSUM_TOL, both relative to the product's largest
-# entry; both solves within SYS_CAP refinements
+# entry; each solve within SPARSIFY_REFINEMENTS + 1 refinements. The
+# counts are the JAX package's on the same configurations (a float32
+# hierarchy refined in float64 to 1e-8, b = A 1, lane padding 1), the most
+# the port may take plus one, as 14a holds TAP_CYCLES; at other sizes the
+# solves are held to 1e-8 within solve_mixed's 100. 18a, from a CPU run of
+# the JAX package:
+#   JAX_PLATFORMS=cpu python -c "import numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.core.types import CoarsenType as C, InterpType as I, \
+#   RelaxType as R; from raptor_tpu.device.par import make_mesh; from \
+#   raptor_tpu.gallery.fem import par_fem; from \
+#   raptor_tpu.multilevel.device_hierarchy import DeviceHierarchy as DH; \
+#   from raptor_tpu.multilevel.par_multilevel import ParRugeStubenSolver \
+#   as RS; A, v = par_fem('elasticity', 1024, 512, 1); ml = RS(0.25, \
+#   C.CLJP, I.ModClassical, relax_type=R.Chebyshev); ml.num_smooth_sweeps \
+#   = 3; ml.num_variables = 2; ml.variables = v; ml.rap_mode = \
+#   ml.interp_mode = 'host'; ml.setup(A); b = \
+#   A.mult(np.ones(A.global_num_rows)); _, h = DH(ml, make_mesh(1), \
+#   dtype=jnp.float32, lane_pad=1).solve_mixed(0 * b, b, tol=1e-8, \
+#   max_iter=200); print([l.A.global_num_rows for l in ml.levels], \
+#   len(h) - 1, h[-1])"
+# 18b, sparsified (TOL 0.4) and not (TOL 0.0):
+#   JAX_PLATFORMS=cpu python -c "import sys, numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.core.types import CoarsenType as C, InterpType as I, \
+#   RelaxType as R; from raptor_tpu.device.par import make_mesh; from \
+#   raptor_tpu.gallery.stencils import diffusion_stencil_2d as D, \
+#   par_stencil_grid as G; from raptor_tpu.multilevel.device_hierarchy \
+#   import DeviceHierarchy as DH; from \
+#   raptor_tpu.multilevel.par_multilevel import ParRugeStubenSolver as RS; \
+#   n, tol = 1024, float(sys.argv[1]); A = G(D(0.001, np.pi / 8), (n, n), \
+#   1); ml = RS(0.25, C.CLJP, I.ModClassical, relax_type=R.Chebyshev); \
+#   ml.num_smooth_sweeps = 3; ml.sparsify_tol = tol; ml.rap_mode = \
+#   ml.interp_mode = 'host'; ml.setup(A); b = A.mult(np.ones(n * n)); _, h \
+#   = DH(ml, make_mesh(1), dtype=jnp.float32, lane_pad=1).solve_mixed(0 * \
+#   b, b, tol=1e-8, max_iter=200); print([l.A.nnz for l in ml.levels], \
+#   len(h) - 1, h[-1])" TOL
 P18_TIMEOUT = 600
-SYS_CAP = 100
+SYS_REFINEMENTS = {(1024, 512): 37}
+SPARSIFY_REFINEMENTS = {(1024, 0.4): 62, (1024, 0.0): 41}
 SYS_REPLAY_TOL = 1e-14
 SYS_CPU = 24
 SYS_GAP_CYCLES = (1, 6, 12)
@@ -2778,6 +2862,14 @@ SPARSIFY_SYM_TOL = 1e-10
 SPARSIFY_ROWSUM_TOL = 1e-12
 PROFILE_REPS = 20
 PROFILE_PAIRS = 5
+
+
+def jax_count_limit(counts, key):
+    """The most refinements a phase 18 solve may take: the JAX package's
+    count at ``key`` plus one, None (1e-8 within solve_mixed's 100) where
+    it has none."""
+    k = counts.get(key)
+    return None if k is None else k + 1
 
 
 def systems_setup(nx, ny):
@@ -2911,7 +3003,8 @@ def systems_prepare(torch, nx, ny):
         b = A.mult(np.ones(A.global_num_rows))
         out["refinements"], out["launches"], out["solve_s_first"] = \
             drive_solve(torch, dh, A, b, f"systems {nx} x {ny}, b = A 1",
-                        kernels, limit=SYS_CAP)
+                        kernels, limit=jax_count_limit(SYS_REFINEMENTS,
+                                                       (nx, ny)))
         out.update(cycle_report(torch, dh, b, kernels))
         return out
     return measure
@@ -3011,7 +3104,7 @@ def sparsify_prepare(torch, n, tol):
         b = A.mult(np.ones(A.global_num_rows))
         out["refinements"], out["launches"], out["solve_s_first"] = \
             drive_solve(torch, dh, A, b, f"{n}^2 {key}, b = A 1", kernels,
-                        limit=SYS_CAP)
+                        limit=jax_count_limit(SPARSIFY_REFINEMENTS, (n, tol)))
         out.update(cycle_report(torch, dh, b, kernels))
         return out
     return measure
@@ -3245,11 +3338,472 @@ def comm_model(ml, word_bytes):
             "seconds": s}
 
 
+# phase 19: the real-matrix path, the reference's
+# examples/benchmark_nek5000.py flow on the port's stacked shards: an
+# operator read from a matrix file, partitioned k-way and its rows
+# migrated, its shards placed by the (hosts x shards per host) Topology
+# of TAP_LAYOUT, diagonally scaled, set up, checkpointed and reloaded, and
+# solved by float64 AMG-preconditioned CG. The operator is the gallery's
+# SIPG DG diffusion (penalty DG_SIGMA) at DG_N^2 elements (4 dofs each,
+# 1,048,576 rows), written to a .pm file and read back bit for bit (the
+# .mtx round trip at DG_MTX_N^2, where MatrixMarket's text stays small);
+# its assembly must take less than DG_ASSEMBLY_S. The setup is
+# tests/test_fem.py::test_fem_gallery_amg_solves's (RS + modified
+# classical, theta 0.25, Chebyshev(2), host engines). The distributed
+# repartition (label propagation and the row migration over the in-process
+# transport, from a local view of the block partition) must equal
+# make_contiguous on the same labels bit for bit, and the k-way labels
+# migrated over the transport the global repartition, the checkpoint the
+# setup, level by level; PCG to DG_TOL within the JAX package's iterations
+# on the same pipeline plus one, its levels and nnz JAX's, and the
+# unscaled, unpermuted x's residual on the original operator below
+# DG_RESIDUAL. JAX's levels, nnz, shard sizes and iterations, from a CPU
+# run of the JAX package at side N:
+#   JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
+#   python -c "import sys, tempfile, numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.core.topology import Topology, reorder_shards; from \
+#   raptor_tpu.core.types import CoarsenType as C, InterpType as I, \
+#   RelaxType as R; from raptor_tpu.device.par import make_mesh; from \
+#   raptor_tpu.gallery.dg import dg_diffusion; from raptor_tpu.gallery.io \
+#   import read_par_pm, write_pm; from raptor_tpu.krylov.cg import cg; from \
+#   raptor_tpu.linalg.diag_scale import diagonally_scale; from \
+#   raptor_tpu.linalg.repartition import partition_graph, \
+#   repartition_matrix; from raptor_tpu.multilevel.checkpoint import \
+#   load_hierarchy, save_hierarchy; from \
+#   raptor_tpu.multilevel.device_hierarchy import DeviceHierarchy as DH; \
+#   from raptor_tpu.multilevel.par_multilevel import ParRugeStubenSolver \
+#   as RS; n = int(sys.argv[1]); d = tempfile.mkdtemp(); write_pm(d + \
+#   '/a.pm', dg_diffusion(n, n)); A = read_par_pm(d + '/a.pm', 8); b = \
+#   A.mult(np.ones(A.global_num_rows)); A1, p1 = repartition_matrix(A, \
+#   partition_graph(A, 8)); A2, p2 = reorder_shards(A1, Topology(8, \
+#   ppn=4)); As, bs, s = diagonally_scale(A2, b[p1[p2]]); ml = RS(0.25, \
+#   C.RS, I.ModClassical, relax_type=R.Chebyshev); ml.num_smooth_sweeps = \
+#   2; ml.rap_mode = ml.interp_mode = 'host'; ml.setup(As); \
+#   save_hierarchy(ml, d + '/h'); ml = load_hierarchy(d + '/h'); m = \
+#   make_mesh(8); dh = DH(ml, m, dtype=jnp.float64); r = cg(m, \
+#   dh.levels[0].A, dh.vector(0 * bs), dh.vector(bs), tol=1e-8, \
+#   max_iter=200, precond=dh.precond_pack()); print([l.A.global_num_rows \
+#   for l in ml.levels], [l.A.nnz for l in ml.levels], \
+#   np.diff(A2.partition.row_bounds).tolist(), int(r.n_iters))" N
+# 19g: the DG_CPU_N^2 pipeline solved on the card and with the plain
+# versions on the CPU, x within CARD_CPU_TOL of max |x| in the same
+# iterations.
+DG_N = 512
+DG_SIGMA = 10.0
+DG_SHARDS = TAP_LAYOUT[0] * TAP_LAYOUT[1]
+DG_MTX_N = 128
+DG_ASSEMBLY_S = 20.0
+DG_TOL = 1e-8
+DG_MAX_ITER = 200
+DG_RESIDUAL = 1e-7
+DG_CPU_N = 32
+DG_LEVELS = {512: [1048576, 524288, 261123, 65278, 16256, 4095, 1022, 255,
+                   65, 19],
+             32: [4096, 2048, 963, 240, 56, 13]}
+DG_NNZ = {512: [16492540, 12019742, 5463135, 1360126, 336036, 83695, 19956,
+                4781, 1047, 251],
+          32: [63100, 44702, 18975, 4394, 868, 121]}
+DG_SHARD_ROWS = {512: [120065, 128216, 137234, 136768, 137159, 136056,
+                       135613, 117465],
+                 32: [470, 505, 528, 484, 532, 538, 538, 501]}
+DG_PCG = {512: 10, 32: 10}
+
+
+def same_csr(what, a, b):
+    """Fail unless two CSR matrices are equal bit for bit."""
+    if not (a.shape == b.shape and np.array_equal(a.indptr, b.indptr)
+            and np.array_equal(a.indices, b.indices)
+            and np.asarray(a.data).tobytes() == np.asarray(b.data).tobytes()):
+        raise AssertionError(f"{what}: not equal bit for bit")
+
+
+def dg_pipeline(n, tmp, out, full=True):
+    """Steps 19a-19d at n^2 elements in directory ``tmp``: the operator
+    through a .pm file, the partitions, k-way repartition, topology
+    placement, scaling, the setup and its checkpoint; with ``full`` also
+    the .mtx round trip, the block and RCM partitions' volumes and the
+    distributed repartition. Records seconds and figures in ``out``;
+    returns (original A, b = A 1, scaled A, scaled b, scales, perm with
+    perm[new] = old, the reloaded hierarchy)."""
+    from raptor_tpu_torch.comm.transport import InProcessTransport
+    from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
+    from raptor_tpu_torch.core.topology import Topology, reorder_shards
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
+    from raptor_tpu_torch.gallery import io
+    from raptor_tpu_torch.gallery.dg import dg_diffusion
+    from raptor_tpu_torch.linalg import repartition as rep
+    from raptor_tpu_torch.linalg.diag_scale import diagonally_scale
+    from raptor_tpu_torch.multilevel import checkpoint
+    from raptor_tpu_torch.multilevel.par_multilevel import (
+        ParRugeStubenSolver)
+    s = out.setdefault("seconds", {})
+
+    def step(name, t0):
+        s[name] = time.perf_counter() - t0
+        return time.perf_counter()
+
+    # 19a: assembly and the file round trips
+    t0 = time.perf_counter()
+    a = dg_diffusion(n, n, sigma=DG_SIGMA)
+    t0 = step("assembly", t0)
+    if full and s["assembly"] > DG_ASSEMBLY_S:
+        raise AssertionError(f"DG {n}^2 assembly {s['assembly']:.1f} s")
+    io.write_pm(tmp / "dg.pm", a)
+    t0 = step("write_pm", t0)
+    A0 = io.read_par_pm(tmp / "dg.pm", DG_SHARDS)
+    t0 = step("read_pm", t0)
+    same_csr(f"DG {n}^2 .pm round trip", A0.global_csr, a)
+    out.update(rows=a.n_rows, nnz=a.nnz,
+               pm_bytes=os.path.getsize(tmp / "dg.pm"))
+    del a
+    if full:
+        small = dg_diffusion(DG_MTX_N, DG_MTX_N, sigma=DG_SIGMA)
+        t0 = time.perf_counter()
+        io.write_mm(tmp / "dg.mtx", small)
+        back = io.read_mm(tmp / "dg.mtx")
+        t0 = step("mtx_round_trip", t0)
+        if not (np.array_equal(back.indptr, small.indptr)
+                and np.array_equal(back.indices, small.indices)):
+            raise AssertionError("DG .mtx round trip: another pattern")
+        mtx_err = float(np.abs(back.data - small.data).max()
+                        / np.abs(small.data).max())
+        if mtx_err > 1e-15:
+            raise AssertionError(f"DG .mtx round trip: values {mtx_err}")
+        out["mtx"] = {"n": DG_MTX_N, "nnz": small.nnz, "rel_err": mtx_err,
+                      "bit_equal": back.data.tobytes() == small.data.tobytes(),
+                      "bytes": os.path.getsize(tmp / "dg.mtx")}
+        print(f"  .mtx round trip at {DG_MTX_N}^2 ({small.nnz} nnz, "
+              f"{out['mtx']['bytes']} B): {s['mtx_round_trip']:.3f} s, "
+              f"values {mtx_err:.1e} apart (bit for bit: "
+              f"{out['mtx']['bit_equal']})", flush=True)
+        del small, back
+    print(f"DG {n}^2: {out['rows']} rows, {out['nnz']} nnz assembled in "
+          f"{s['assembly']:.3f} s; .pm {out['pm_bytes']} B written in "
+          f"{s['write_pm']:.3f} s, read into {DG_SHARDS} shards in "
+          f"{s['read_pm']:.3f} s, bit for bit", flush=True)
+
+    # 19b: the partitions, the migration, the placement and the scaling
+    N = A0.global_num_rows
+    b0 = A0.mult(np.ones(N))
+    t0 = time.perf_counter()
+    kway = rep.partition_graph(A0, DG_SHARDS, method="kway")
+    t0 = step("kway", t0)
+    vols = {"kway": rep.comm_volume(A0, kway)}
+    if full:
+        block = np.repeat(np.arange(DG_SHARDS),
+                          np.diff(A0.partition.row_bounds))
+        vols["block"] = rep.comm_volume(A0, block)
+        t0 = time.perf_counter()
+        vols["rcm"] = rep.comm_volume(
+            A0, rep.partition_graph(A0, DG_SHARDS, method="rcm"))
+        t0 = step("rcm", t0)
+    out["partitions"] = vols
+    print("  partitions into " + str(DG_SHARDS) + ": " + "; ".join(
+        f"{k} halo {v['halo_values']}, edge cut {v['edge_cut']}, largest "
+        f"{v['max_part_rows']} rows" for k, v in vols.items())
+        + f" (k-way {s['kway']:.3f} s)", flush=True)
+    t0 = time.perf_counter()
+    A1, p1 = rep.repartition_matrix(A0, kway)
+    t0 = step("repartition", t0)
+    A2, p2 = reorder_shards(A1, Topology(DG_SHARDS, ppn=TAP_LAYOUT[1]))
+    perm = p1[p2]
+    t0 = step("reorder_shards", t0)
+    As, bs, scales = diagonally_scale(A2, b0[perm])
+    t0 = step("diagonally_scale", t0)
+    out["shard_rows"] = np.diff(A2.partition.row_bounds).tolist()
+    print(f"  k-way shards {out['shard_rows']}; repartition "
+          f"{s['repartition']:.3f} s, reorder_shards (Topology("
+          f"{DG_SHARDS}, ppn={TAP_LAYOUT[1]})) {s['reorder_shards']:.3f} s,"
+          f" diagonally_scale {s['diagonally_scale']:.3f} s", flush=True)
+    del A2
+
+    # 19c: the distributed repartition from a local view of the block
+    # rows: label propagation's labels, then (rows moving between every
+    # pair of shards) the k-way labels, each migrated over the transport
+    # and equal to the global path's matrix, permutation and bounds
+    if full:
+        view = ParCSRMatrix.from_local_rows(
+            [blk.global_cols_csr(N) for blk in A0.shards()], A0.partition)
+        tr = InProcessTransport(view)
+
+        def migrate(what, labels, ref, perm_ref):
+            moved, perms = rep.repartition_matrix(view, labels, tr=tr)
+            same_csr(f"distributed repartition ({what})",
+                     moved.assemble_global(), ref.global_csr)
+            if not (np.array_equal(np.concatenate(perms), perm_ref)
+                    and np.array_equal(moved.partition.row_bounds,
+                                       ref.partition.row_bounds)):
+                raise AssertionError(f"distributed repartition ({what}): "
+                                     f"another permutation or other bounds")
+
+        t0 = time.perf_counter()
+        labels = rep.dist_partition_graph(view, tr)
+        t0 = step("label_propagation", t0)
+        proc = np.concatenate(labels)
+        ref, perm_ref = rep.make_contiguous(A0, proc)
+        t0 = time.perf_counter()
+        migrate("label propagation", labels, ref, perm_ref)
+        t0 = step("dist_repartition", t0)
+        rb = A0.partition.row_bounds
+        migrate("k-way", [kway[rb[i]:rb[i + 1]] for i in range(DG_SHARDS)],
+                A1, p1)
+        t0 = step("dist_repartition_kway", t0)
+        out["distributed"] = {
+            "lp": rep.comm_volume(A0, proc),
+            "shard_rows": np.diff(ref.partition.row_bounds).tolist(),
+            "moved_rows": int((proc != np.repeat(
+                np.arange(DG_SHARDS), np.diff(rb))).sum())}
+        print(f"  distributed: label propagation {s['label_propagation']:.3f}"
+              f" s ({out['distributed']['moved_rows']} rows moved), its "
+              f"row migration {s['dist_repartition']:.3f} s, equal to "
+              f"make_contiguous bit for bit; edge cut "
+              f"{out['distributed']['lp']['edge_cut']} against the block "
+              f"partition's {vols['block']['edge_cut']}, shards "
+              f"{out['distributed']['shard_rows']}; the k-way labels' "
+              f"migration {s['dist_repartition_kway']:.3f} s, equal to "
+              f"repartition_matrix's bit for bit", flush=True)
+        del view, tr, ref, labels
+    del A1
+
+    # 19d: the setup, its checkpoint and the reload
+    ml = ParRugeStubenSolver(0.25, CoarsenType.RS, InterpType.ModClassical,
+                             relax_type=RelaxType.Chebyshev)
+    ml.num_smooth_sweeps = 2
+    ml.rap_mode = ml.interp_mode = "host"
+    t0 = time.perf_counter()
+    ml.setup(As)
+    t0 = step("setup", t0)
+    checkpoint.save_hierarchy(ml, tmp / "ckpt")
+    t0 = step("save_hierarchy", t0)
+    loaded = checkpoint.load_hierarchy(tmp / "ckpt")
+    t0 = step("load_hierarchy", t0)
+    if loaded.num_levels != ml.num_levels:
+        raise AssertionError("checkpoint: another number of levels")
+    for i, (u, v) in enumerate(zip(ml.levels, loaded.levels)):
+        if not np.array_equal(u.A.partition.row_bounds,
+                              v.A.partition.row_bounds):
+            raise AssertionError(f"checkpoint level {i}: other row bounds")
+        same_csr(f"checkpoint A{i}", u.A.global_csr, v.A.global_csr)
+        if (u.P is None) != (v.P is None):
+            raise AssertionError(f"checkpoint level {i}: P")
+        if u.P is not None:
+            same_csr(f"checkpoint P{i}", u.P.global_csr, v.P.global_csr)
+    out.update(levels=[lvl.A.global_num_rows for lvl in loaded.levels],
+               level_nnz=[lvl.A.nnz for lvl in loaded.levels],
+               level_shard_rows=[np.diff(lvl.A.partition.row_bounds).tolist()
+                                 for lvl in loaded.levels])
+    print(ml.print_hierarchy())
+    print(f"  setup {s['setup']:.3f} s ({ml.num_levels} levels); "
+          f"checkpoint saved in {s['save_hierarchy']:.3f} s, reloaded in "
+          f"{s['load_hierarchy']:.3f} s, every level's A and P and row "
+          f"bounds equal bit for bit", flush=True)
+    del ml
+    return A0, b0, As, bs, scales, perm, loaded
+
+
+def dg_held(n, out):
+    """Fail unless the pipeline's levels, their nnz and the k-way shard
+    sizes at n^2 are the JAX package's."""
+    for key, table in (("levels", DG_LEVELS), ("level_nnz", DG_NNZ),
+                       ("shard_rows", DG_SHARD_ROWS)):
+        want = table[n]
+        if out[key] != want:
+            raise AssertionError(f"DG {n}^2 {key} {out[key]}, the JAX "
+                                 f"package's {want}")
+
+
+def dg_solve(torch, dh, A0, b0, bs, scales, perm, device="cuda"):
+    """19e: float64 AMG-PCG to DG_TOL on the scaled operator; x unscaled
+    and put back in the original order. Returns (iterations, residual
+    history, x, its relative residual on A0)."""
+    from raptor_tpu_torch.krylov.cg import cg
+    from raptor_tpu_torch.linalg.diag_scale import diagonally_unscale
+    r = cg(dh.levels[0].A, dh.vector(np.zeros_like(bs)), dh.vector(bs),
+           tol=DG_TOL, max_iter=DG_MAX_ITER, precond=dh.precond_pack())
+    if device == "cuda":
+        torch.cuda.synchronize()
+    x = np.empty(A0.global_num_rows)
+    x[perm] = diagonally_unscale(dh.host(r.x), scales)
+    rel = float(np.linalg.norm(b0 - A0.mult(x)) / np.linalg.norm(b0))
+    return r.n_iters, np.asarray(r.res), x, rel
+
+
+def pcg_iteration_launches(torch, dh, bs, k, kernels):
+    """The ported kernels' launches of one iteration of the real solve:
+    the counts of ``cg`` stopped after j iterations less those of ``cg``
+    stopped after j - 1, j the last of its k iterations that recomputes
+    no true residual (``cg``'s every 8th)."""
+    from raptor_tpu_torch.krylov.cg import cg
+    j = max(i for i in range(2, k + 1) if (i - 1) % 8)
+    counts = []
+    for m in (j, j - 1):
+        kernels.reset_launches()
+        cg(dh.levels[0].A, dh.vector(np.zeros_like(bs)), dh.vector(bs),
+           tol=DG_TOL, max_iter=m, precond=dh.precond_pack())
+        torch.cuda.synchronize()
+        counts.append(dict(kernels.LAUNCHES))
+    return {name: counts[0][name] - counts[1][name] for name in counts[0]}
+
+
+def pcg_iteration_report(torch, dh, bs, k, kernels):
+    """One PCG iteration on the card: the launches of one iteration of the
+    real solve (``pcg_iteration_launches``); device ms by CUDA events, the
+    host's enqueue ms, the profiler's busy ms and the launches by kernel
+    name in a ``device_trace`` (under the git-ignored build/) of
+    ``krylov.profile.pcg_step``'s proxy step, which must launch the ported
+    kernels as often as that iteration."""
+    import collections
+    import pathlib
+
+    from raptor_tpu_torch.krylov.profile import pcg_step
+    from raptor_tpu_torch.profiling.timers import device_trace
+    launches = pcg_iteration_launches(torch, dh, bs, k, kernels)
+    step = pcg_step(dh.levels[0].A, dh.precond_pack())
+    x = dh.vector(bs)
+
+    def iteration():
+        return step(x)
+
+    iteration()
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    iteration()
+    torch.cuda.synchronize()
+    proxy = dict(kernels.LAUNCHES)
+    if proxy != launches:
+        raise AssertionError(f"the proxy PCG step launches {proxy}, an "
+                             f"iteration of the solve {launches}")
+    t1 = time.perf_counter()
+    iteration()
+    enqueue_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    ms = time_ms(torch, iteration, reps=10)
+    n_kern, busy_ms = device_busy(torch, iteration)
+    logdir = pathlib.Path(__file__).resolve().parent / "build" / "trace19"
+    with device_trace(str(logdir)) as path:
+        iteration()
+    by_name = collections.Counter(trace_kernel_names(path))
+    print(f"  a PCG iteration (float64): ported-kernel launches {launches} "
+          f"in the solve and in the proxy step; the proxy step {ms:.3f} ms "
+          f"on the card, host enqueue {enqueue_ms:.3f} ms, {n_kern} kernels "
+          f"busy {busy_ms:.3f} ms; the trace's {sum(by_name.values())} "
+          f"launches by name, most first: "
+          + ", ".join(f"{k[:60]} {v}" for k, v in by_name.most_common(8)),
+          flush=True)
+    return {"pcg_iteration_ms": ms, "pcg_iteration_enqueue_ms": enqueue_ms,
+            "pcg_iteration_kernels": n_kern,
+            "pcg_iteration_busy_ms": busy_ms,
+            "launches_per_pcg_iteration": launches,
+            "trace_launches_by_name": dict(by_name.most_common(40))}
+
+
+def dg_reference_check(torch, n=DG_CPU_N):
+    """19g: the n^2 pipeline (without its full-size extras) solved by
+    float64 AMG-PCG on the card and with the plain versions on the CPU:
+    the same iterations (JAX's at n), x within CARD_CPU_TOL of max |x|.
+    Returns the gap."""
+    import pathlib
+    import tempfile
+
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        A0, b0, As, bs, scales, perm, ml = dg_pipeline(
+            n, pathlib.Path(tmp), out, full=False)
+    dg_held(n, out)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        dh = DeviceHierarchy(ml, dtype=torch.float64, lane_pad=128,
+                             device=dev)
+        got[dev] = dg_solve(torch, dh, A0, b0, bs, scales, perm, dev)
+    (kg, _, xg, rg), (kc, _, xc, rc) = got["cuda"], got["cpu"]
+    gap = float(np.abs(xg - xc).max() / np.abs(xc).max())
+    print(f"reference: DG {n}^2 float64 AMG-PCG, card {kg} / CPU {kc} "
+          f"iterations (JAX {DG_PCG[n]}), x apart {gap:.3e} of max |x|, "
+          f"residuals {rg:.3e} / {rc:.3e}", flush=True)
+    if kg != kc or kc > DG_PCG[n] + 1 or not gap <= CARD_CPU_TOL:
+        raise AssertionError(f"DG {n}^2: card {kg}, CPU {kc} iterations "
+                             f"(JAX {DG_PCG[n]}), x {gap:.3e} apart")
+    return gap
+
+
+def real_matrix(torch, kernels, by_path, gen, checks, n=DG_N):
+    """Phase 19 (see the comment above DG_N): the pipeline at n^2, the
+    pack of the reloaded hierarchy, the solve and its launches, one PCG
+    iteration's times, the kernels of A0 and P0 against their plain
+    versions, and the card-against-CPU check."""
+    import pathlib
+    import tempfile
+
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    out = {"n": n, "sigma": DG_SIGMA, "shards": DG_SHARDS}
+    with tempfile.TemporaryDirectory() as tmp:
+        A0, b0, As, bs, scales, perm, ml = dg_pipeline(
+            n, pathlib.Path(tmp), out)
+    s = out["seconds"]
+    dg_held(n, out)
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy(ml, dtype=torch.float64)
+    torch.cuda.synchronize()
+    s["pack"] = time.perf_counter() - t0
+    out["formats"] = dh.format_summary()
+    print(f"device hierarchy (float64, lane_pad {dh.lane_pad}): "
+          f"{s['pack']:.3f} s")
+    print("\n".join(out["formats"]))
+    for i, rows in enumerate(out["level_shard_rows"]):
+        print(f"  level {i:2d} shards {rows}")
+
+    # 19e: the solve
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    k, hist, x, rel = dg_solve(torch, dh, A0, b0, bs, scales, perm)
+    s["pcg"] = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    by_path["dg_pcg"] = launches
+    want = DG_PCG[n]
+    print(f"solve (DG {n}^2, float64 AMG-PCG): {k} iterations to "
+          f"{hist[k]:.3e} in {s['pcg']:.3f} s (JAX {want}); unscaled "
+          f"residual on the original operator {rel:.3e}; launches "
+          f"{launches}", flush=True)
+    if not (np.isfinite(x).all() and x.shape == (A0.global_num_rows,)):
+        raise AssertionError("DG solution is not finite or has the wrong "
+                             "shape")
+    if (hist[k] > DG_TOL or rel > DG_RESIDUAL
+            or k > want + 1):
+        raise AssertionError(f"DG {n}^2: {k} iterations to {hist[k]}, "
+                             f"residual {rel} (JAX {want})")
+    require_launches(f"DG {n}^2 PCG", launches,
+                     path_kernels(dh, residual=False))
+    out.update(iterations=k, history=hist[:k + 1].tolist(),
+               unscaled_rel_residual=rel, launches=launches,
+               **pcg_iteration_report(torch, dh, bs, k, kernels))
+
+    # 19f: the kernels of A0 and P0 against their plain versions
+    cases = [(FORMAT_KERNEL[M.on_format], f"DG {n}^2 {label}", M, host(),
+              embed) for label, M, host, embed in operators(dh, ml)[:2]
+             if M.on_format in FORMAT_KERNEL]
+    out["checked"] = [c[1] for c in cases]
+    del dh
+    torch.cuda.empty_cache()
+    run_checks(torch, cases, 128, gen, checks)
+    del cases
+
+    # 19g: card against CPU
+    out["card_cpu_rel_err"] = dg_reference_check(torch)
+    print(json.dumps({f"dg_{n}": {k: v for k, v in out.items()
+                                  if k not in ("history", "formats")}}))
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048, help="2-D grid side")
-    ap.add_argument("--n3", type=int, default=128, help="3-D grid side")
-    ap.add_argument("--nk", type=int, default=512,
+    ap.add_argument("--n3", type=int, default=128,
+                    help="3-D grid side (phases 6-9)")
+    ap.add_argument("--card-n3", type=int, default=96,
+                    help="3-D grid side of phase 13's setup on the card")
+    ap.add_argument("--nk", type=int, default=256,
                     help="grid side of the 2-D SOR and Krylov phase")
     ap.add_argument("--sa", type=int, nargs=2, default=[128, 64],
                     metavar=("N_WELL", "N_WELLT"),
@@ -3507,8 +4061,8 @@ def main(argv=None):
                "solve_refinements_ones": sa64["solve_refinements_ones"]}}
     del dh3, ml3, A3
     torch.cuda.empty_cache()
-    summary_card = setup_on_card(torch, n // 2, n3, args.sa[1],
-                                 host_setups, kernels, by_path)
+    summary_card = setup_on_card(torch, n // 2, args.card_n3,
+                                 args.sa[1], host_setups, kernels, by_path)
     phase("setup on the card", t0)
 
     # 14. the topology-aware exchange and the distributed setup
@@ -3559,6 +4113,12 @@ def main(argv=None):
     print(json.dumps({"phase18": summary_18}))
     phase("systems AMG, RAP sparsification, profiling", t0)
 
+    # 19. the real-matrix path: a matrix file, k-way repartition, topology
+    # placement, diagonal scaling, a checkpointed setup and AMG-PCG
+    t0 = time.perf_counter()
+    summary_dg = real_matrix(torch, kernels, by_path, gen, checks)
+    phase("the real-matrix path", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -3606,15 +4166,19 @@ def main(argv=None):
                 "2d_sparsified": summary_18["sparsify"]["sparsified"][
                     "launches_per_vcycle"][name],
                 "2d_unsparsified": summary_18["sparsify"]["plain"][
-                    "launches_per_vcycle"][name]},
+                    "launches_per_vcycle"][name],
+                "dg_512_pcg_iteration": summary_dg[
+                    "launches_per_pcg_iteration"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
             "checks": [{k: c[k] for k in ("operator", "dtype", "rel_err",
                                            "ms", "call_ms", "plain_ms",
-                                           "library_ms",
-                                           "bound_ms", "tiles", "tile_share",
-                                           "tile_fill", "all_planes_bound_ms",
+                                           "library_ms", "bound_ms",
+                                           "packed_read_ms", "tiles",
+                                           "tile_share", "tile_fill",
+                                           "tile_bound_ms",
+                                           "all_planes_bound_ms",
                                            "padded_bound_ms", "real_slots",
                                            "warps", "real_entries", "nnz",
                                            "slots", "fill", "col_bytes")
@@ -3631,7 +4195,7 @@ def main(argv=None):
                       "bsr": summary_bsr, "setup_on_card": summary_card,
                       "tap": summary_tap, "spmd": summary_spmd,
                       "mc": summary_mc, "mc_tap": summary_mct,
-                      "phase18": summary_18,
+                      "phase18": summary_18, "dg_512": summary_dg,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

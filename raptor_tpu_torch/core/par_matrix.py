@@ -1,6 +1,6 @@
 """Row-partitioned distributed matrix, host-side description (copy of
-raptor_tpu.core.par_matrix: ``ParCSRMatrix``, ``ShardBlocks`` and
-``shard_from_local_rows`` only).
+raptor_tpu.core.par_matrix: ``ParCSRMatrix``, ``ShardBlocks``,
+``shard_from_local_rows`` and ``par_matrix_from_scipy`` only).
 
 Equivalent of the reference's ``ParCSRMatrix`` (core/par_matrix.hpp:78-849):
 each shard owns a contiguous block of rows split into an ``on_proc`` block
@@ -246,3 +246,14 @@ class ParCSRMatrix:
         """Distributed transpose (par_matrix.cpp:694-858)."""
         return ParCSRMatrix(self._g().transpose(),
                             self.partition.transpose())
+
+    def diagonal(self) -> np.ndarray:
+        return self._g().diagonal()
+
+
+def par_matrix_from_scipy(m, n_shards: int) -> ParCSRMatrix:
+    """A scipy matrix over the contiguous block partition into
+    ``n_shards``."""
+    csr = CSRMatrix.from_scipy(m)
+    return ParCSRMatrix(
+        csr, Partition.create(csr.n_rows, csr.n_cols, n_shards))

@@ -316,18 +316,21 @@ def bdia_spmv(d_offsets: Tuple[int, ...], idx: torch.Tensor,
               vals: torch.Tensor, x: torch.Tensor, padb: int,
               rows_pad: int) -> torch.Tensor:
     """out[s, a, l] = sum_p vals[s,p,a,l] * X[s, a + d_p, idx[s,p,a,l]],
-    X = x viewed [C128, 128], zero outside; returns [S, rows_pad]."""
+    X = x viewed [C128, 128], zero outside; returns [S, rows_pad]. Only
+    the row blocks below ``rows_pad`` are summed: the padded blocks past
+    them (up to the stacked operators' common A_pad) are never returned."""
     S, P, A_pad, _ = idx.shape
+    nblk = min(A_pad, -(-rows_pad // LANE))
     C = x.shape[1]
     C128 = -(-C // LANE)
     x2 = F.pad(x, (0, C128 * LANE - C)).reshape(S, C128, LANE)
     S_pad = max(A_pad, C128) + 2 * padb
     xp = F.pad(x2, (0, 0, padb, S_pad - C128 - padb))
-    out = torch.zeros((S, A_pad, LANE), dtype=x.dtype, device=x.device)
-    idx = idx.long()
+    out = torch.zeros((S, nblk, LANE), dtype=x.dtype, device=x.device)
+    idx = idx[:, :, :nblk].long()
     for p, d in enumerate(d_offsets):
-        w = xp[:, padb + d:padb + d + A_pad]
-        out = out + vals[:, p] * torch.gather(w, 2, idx[:, p])
+        w = xp[:, padb + d:padb + d + nblk]
+        out = out + vals[:, p, :nblk] * torch.gather(w, 2, idx[:, p])
     return out.reshape(S, -1)[:, :rows_pad]
 
 

@@ -1,6 +1,6 @@
 """Finite-element problem gallery (copy of raptor_tpu.gallery.fem: the Q1
-Laplacian and plane-stress elasticity; the discontinuous-Galerkin kinds of
-``gallery/dg.py`` wait for ROADMAP Queue 1 item 15).
+Laplacian and plane-stress elasticity here, the discontinuous-Galerkin and
+vector kinds in ``gallery/dg.py``).
 
 The reference exposes FE problems through an optional MFEM wrapper
 (external/mfem_wrapper.hpp:15-45); without MFEM the gallery assembles the
@@ -18,10 +18,6 @@ import scipy.sparse as sp
 from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.partition import Partition
-
-DG_KINDS = ("dg_diffusion", "dg_elasticity", "grad_div",
-            "adaptive_laplacian")
-
 
 def _q1_grid(nx: int, ny: int):
     """Node ids [ny+1, nx+1] and element connectivity [nel, 4]
@@ -128,19 +124,28 @@ def q1_linear_elasticity(nx: int, ny: int, E: float = 1.0,
 
 
 def par_fem(kind: str, nx: int, ny: int, n_shards: int, **kw):
-    """Partitioned FE gallery entry (external/mfem_wrapper.hpp:15-45):
-    ``kind`` "laplace" returns the ParCSRMatrix, "elasticity" the pair
-    (ParCSRMatrix, per-dof variable ids). The discontinuous-Galerkin kinds
-    of the JAX package raise NotImplementedError."""
+    """Partitioned FE gallery entry, the reference's six MFEM problems
+    (external/mfem_wrapper.hpp:15-45): ``kind`` in {"laplace",
+    "elasticity", "dg_diffusion", "dg_elasticity", "grad_div",
+    "adaptive_laplacian"}. "elasticity" and "dg_elasticity" return the
+    pair (ParCSRMatrix, per-dof variable ids), the others the
+    ParCSRMatrix; "adaptive_laplacian" takes ``nx`` as its coarse cells
+    and ignores ``ny``."""
+    from raptor_tpu_torch.gallery import dg
     variables = None
     if kind == "laplace":
         a = q1_laplacian(nx, ny)
     elif kind == "elasticity":
         a, variables = q1_linear_elasticity(nx, ny, **kw)
-    elif kind in DG_KINDS:
-        raise NotImplementedError(
-            f"par_fem kind {kind!r}: gallery/dg.py is not ported yet "
-            f"(ROADMAP Queue 1 item 15)")
+    elif kind == "dg_diffusion":
+        a = dg.dg_diffusion(nx, ny, **kw)
+    elif kind == "dg_elasticity":
+        a = dg.dg_elasticity(nx, ny, **kw)
+        variables = (np.arange(a.n_rows) % 2).astype(np.int64)
+    elif kind == "grad_div":
+        a = dg.grad_div(nx, ny, **kw)
+    elif kind == "adaptive_laplacian":
+        a = dg.adaptive_laplacian(nx, **kw)
     else:
         raise ValueError(kind)
     part = Partition.create(a.n_rows, a.n_cols, n_shards)

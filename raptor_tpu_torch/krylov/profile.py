@@ -24,7 +24,7 @@ every controller calls this together, as it calls the solver.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -34,6 +34,29 @@ from raptor_tpu_torch.krylov.cg import Precond
 from raptor_tpu_torch.profiling.timers import interleaved_seconds, rescale
 
 REPS = 40
+
+
+def pcg_step(A: DeviceParCSR, precond: Optional[Precond] = None
+             ) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The work of one PCG iteration as a map x -> x': one SpMV, three
+    inner products, the alpha / beta updates and, with ``precond``, one
+    V-cycle, with x standing in for the search direction and the residual
+    (the same kernels as an iteration of ``cg`` that does not recompute
+    the true residual, on other values)."""
+
+    def dot(u, v):
+        return dpar.dot(u, v, A.comm)
+
+    def step(x):
+        ap = spmv(A, x)
+        app = dot(ap, x)
+        alpha = dot(x, x) / app
+        r = x - alpha * ap
+        z = r if precond is None else precond(torch.zeros_like(r), r)
+        beta = dot(r, z) / app
+        return z + beta * x
+
+    return step
 
 
 def pcg_time_split(A: DeviceParCSR, b: torch.Tensor,
@@ -58,14 +81,7 @@ def pcg_time_split(A: DeviceParCSR, b: torch.Tensor,
     def apply(x):
         return precond(torch.zeros_like(x), x)
 
-    def iteration(x):
-        ap = spmv(A, x)
-        app = dot(ap, x)
-        alpha = dot(x, x) / app
-        r = x - alpha * ap
-        z = r if precond is None else apply(r)
-        beta = dot(r, z) / app
-        return z + beta * x
+    iteration = pcg_step(A, precond)
 
     chains = {"total_t": (iteration, b, rescale),
               "spmv_t": (lambda x: spmv(A, x), b, rescale),

@@ -12,8 +12,9 @@ the PMIS loop, extended+i interpolation and its pattern bound, the
 operand packing of the device
 interpolation engines, the smoothers' greedy colouring and triangular
 level schedule, smoothed aggregation's MIS(2) and aggregation passes,
-the per-round weight update of the distributed CLJP splitting, and the
-per-round steps of the distributed MIS(2) and aggregation. Both packages
+the per-round weight update of the distributed CLJP splitting, the
+per-round steps of the distributed MIS(2) and aggregation, and the
+multilevel k-way graph partitioner. Both packages
 then build
 bit-identical hierarchies. There is no Python fallback: if the build
 fails, ``load`` raises.
@@ -102,6 +103,8 @@ def load():
             _i64, I64, I64, F64, ctypes.c_double, I64, I64, F64]
         lib.symmetric_strength_csr.restype = _i64
         lib.mis2.argtypes = [_i64] + [I64] * 4 + [F64, I64]
+        lib.partition_kway.argtypes = [_i64, I64, I64, F64, _i64, I64]
+        lib.partition_kway.restype = _i64
         lib.dist_cljp_update.argtypes = [_i64] * 3 + [I64] * 13 + [F64] * 2
         lib.dist_mis2_step1.argtypes = [_i64] + [I64] * 4 + [F64, F64, I64,
                                                              I64]
@@ -732,3 +735,22 @@ def spgemm_T(n_rows_a, n_cols_a, n_cols_b, a_indptr, a_indices, a_data,
         _p(a_indices, I64), _p(a_data, F64), _p(b_indptr, I64),
         _p(b_indices, I64), _p(b_data, F64), zero_tol, _p(c_indptr, I64))
     return (c_indptr,) + _spgemm_out(lib, nnz)
+
+
+def partition_kway(indptr, indices, ew, n, k):
+    """Multilevel k-way partition of a symmetric adjacency CSR without
+    self loops (the ParMETIS_V3_PartKway analog): heavy-edge matching,
+    greedy growing, boundary FM refinement, with edge weights ``ew``
+    (None: 1). Returns (part[n], edge_cut)."""
+    lib = load()
+    indptr, indices = _c(indptr), _c(indices)
+    part = np.zeros(n, dtype=np.int64)
+    if ew is not None:
+        ew = _f(ew)
+        ew_p = _p(ew, F64)
+    else:
+        ew_p = F64()
+    cut = lib.partition_kway(n, _p(indptr, I64), _p(indices, I64), ew_p, k,
+                             _p(part, I64))
+    # the C side returns the cut in units of 2^-20
+    return part, cut / 1048576.0

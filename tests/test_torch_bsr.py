@@ -113,10 +113,22 @@ def test_par_fem_partitions_match_jax(kind, n_shards):
     np.testing.assert_array_equal(t.global_csr.indices, j.global_csr.indices)
 
 
-@pytest.mark.parametrize("kind", tfem.DG_KINDS)
+@pytest.mark.parametrize("kind", ["dg_diffusion", "dg_elasticity",
+                                  "grad_div", "adaptive_laplacian"])
 def test_par_fem_dg_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="item 15"):
-        tfem.par_fem(kind, 8, 8, 1)
+    """The DG and vector kinds build through ``par_fem`` bit-equal to the
+    JAX package's (gallery/dg.py is ported); an unknown kind raises."""
+    t = tfem.par_fem(kind, 8, 8, 2)
+    j = jfem.par_fem(kind, 8, 8, 2)
+    if kind == "dg_elasticity":
+        (t, tv), (j, jv) = t, j
+        np.testing.assert_array_equal(tv, jv)
+    np.testing.assert_array_equal(t.partition.row_bounds,
+                                  j.partition.row_bounds)
+    np.testing.assert_array_equal(t.global_csr.indptr, j.global_csr.indptr)
+    np.testing.assert_array_equal(t.global_csr.indices,
+                                  j.global_csr.indices)
+    _bits(t.global_csr.data, j.global_csr.data)
     with pytest.raises(ValueError):
         tfem.par_fem("no_such_kind", 8, 8, 1)
 

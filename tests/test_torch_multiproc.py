@@ -12,8 +12,8 @@ in-process ``setup_mode="distributed"`` hierarchies in pattern, with the
 values to JAX's tests/test_multiproc.py tolerance (rtol 1e-12, atol
 1e-14): at 4 ranks the SA and blocked coarse levels over processes part
 from the in-process ones by up to 9e-16, in the JAX package as in the
-port. JAX's ``test_multiproc_repartition_kway`` is left out: the port has
-no ``linalg/repartition.py`` (ROADMAP Queue 1 item 15).
+port. JAX's ``test_multiproc_repartition_kway`` is in
+tests/test_torch_mp_repartition.py.
 
 The problems are JAX's: 20^2 rotated anisotropic diffusion at 2 and 4
 ranks, 64^2 at 8, and 24 x 12 Q1 plane-stress elasticity.
