@@ -13,7 +13,9 @@ exit code and no result line:
    kernels (raptor_tpu_torch/csrc/*.cu), all compilers started together;
 3. setup: n x n rotated anisotropic diffusion, Ruge-Stuben + modified
    classical interpolation, theta 0.25, Chebyshev(3), on the host; then the
-   float32 device hierarchy, with each operator's format (all DIA/BDIA);
+   float32 device hierarchy, with each operator's format (all DIA/BDIA),
+   the value ``pin_arena`` returns (the setup keeps its large buffers in
+   the heap arena) and the process's peak RSS (also after phase 6);
 4. kernels: the DIA and BDIA kernels against their plain PyTorch versions
    on the real packed operators, in float32 and float64, and their times
    beside the byte bound and a torch.sparse CSR product of the operator;
@@ -116,8 +118,9 @@ exit code and no result line:
    BSR-PCG iterations to 1e-10), ``spmd_bsr_setup`` equal to it level by
    level after a common 1e-14 drop. (d) one float64 V-cycle of a 64^2
    ``from_spmd`` hierarchy on the card and on the CPU: equal to 1e-12 of
-   max |x|. Its seconds and a JSON summary line (``phase15``) come before
-   the kernel list;
+   max |x|. (a) also takes the plain hierarchy's ``profile_cycle`` rows,
+   which phase 16 prints beside its controllers'. Its seconds and a JSON
+   summary line (``phase15``) come before the kernel list;
 16. the setup over real OS processes and the device solve with one
    controller per shard (``comm.launch.run_controllers``: 8 interpreters
    on the one card, each ``comm.bootstrap.init`` with gloo, whose
@@ -129,7 +132,12 @@ exit code and no result line:
    residual below 1e-8, DIA and BDIA launched by every controller (their
    counts summed into the kernel list's ``2d_mc``); per controller the
    setup and pack seconds, one V-cycle's device and enqueue ms and its
-   launches. (b) one float64 V-cycle of a 64^2 hierarchy on two
+   launches. Then every controller at once runs ``profile_cycle`` (20
+   repetitions; ``print_times``' rows), printed beside the stacked 15a
+   hierarchy's: each controller's rows have its levels, every time finite
+   and above 0 (the transfer 0 on the coarsest level only), its launches
+   are summed into ``2d_mc_profile``, and a V-cycle after it equals one
+   before it bit for bit. (b) one float64 V-cycle of a 64^2 hierarchy on two
    controllers, on the card and on the CPU: equal to 1e-12 of max |x|.
    Its seconds and a JSON summary line (``phase16``) come before the
    kernel list;
@@ -206,7 +214,27 @@ exit code and no result line:
    kernel name of a proxy step that launches as much; the kernels of
    A0 and P0 against their plain versions; a 32^2 pipeline solved on the
    card and on the CPU, x within 1e-12 of max |x|. Its JSON line
-   (``dg_512``) comes before the kernel list.
+   (``dg_512``) comes before the kernel list;
+20. the containers and the rest of the host library. (a) phase 3's
+   operator at 1024^2 assembled by ``ParCOOMatrix`` from the stencil's
+   entries split into exact halves in a seeded scrambled order (the
+   stencil matrix bit for bit); phase 3's configuration as an
+   ``AMGConfig`` carried through ``to_dict``, JSON and ``from_dict``,
+   built and set up: its levels, A and P those of ``aniso_setup`` bit for
+   bit; the float32 hierarchy refined to 1e-8 with b = A 1 (made through
+   ``ParVector``, whose norm and inner product are held to numpy's) in at
+   most the JAX package's 16 refinements plus one, DIA and BDIA launched
+   (``2d_containers``); ParCSR's ``mult_T`` (on P0: A is symmetric)
+   against ``ParCSCMatrix``'s transpose times x and ``residual`` against a
+   numpy row sum, within 1e-14 of max. (b) phase 12's elasticity at 512 x 256 elements assembled block
+   by block (exact halves, scrambled) by ``ParBCOOMatrix`` (par_fem's
+   matrix bit for bit), ``ParBSRMatrix.to_device`` and ``bsr_spmv`` on the
+   card within 1e-12 of max |y| of the host product, a ``ParBSCMatrix``
+   round trip. (c) ``SerialMultilevel`` at 25^2 in the card's one-shard
+   float64 cycles (residuals within rtol 1e-5, x within 1e-8), and
+   ``solve_external``'s scipy CG at 40^2 (SSOR) to 1e-10 in under 30
+   iterations. Each step's seconds and the peak RSS; its JSON line
+   (``phase20``) comes before the kernel list.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -217,6 +245,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -245,7 +274,9 @@ FORMAT_KERNEL = {"dia": "dia_spmv", "bdia": "bdia_spmv",
 
 
 def phase(name, t0):
-    print(f"[{name}] done in {time.perf_counter() - t0:.3f} s", flush=True)
+    """A phase's seconds and this process's peak resident set so far."""
+    print(f"[{name}] done in {time.perf_counter() - t0:.3f} s; peak RSS "
+          f"{peak_rss_mib():.1f} MiB", flush=True)
 
 
 def time_ms(torch, fn, reps=20, warm=3):
@@ -2160,6 +2191,8 @@ def spmd_bridge(torch, ml, A, dist, kernels, by_path):
     for label, c in compare_cycles(torch, kept, b, kernels).items():
         out[label].update(c)
     print_cycles(f"SPMD bridge {n}^2", {k: out[k] for k in kept})
+    # the rows phase 16's controllers print theirs beside
+    out["plain"]["profile_rows"] = dh.profile_cycle(reps=PROFILE_REPS)
     return out, hier
 
 
@@ -2380,8 +2413,9 @@ def mc_controller(comm, n):
     (float32 Chebyshev(3), lane pad 128), refinement to 1e-8 with
     b = A 1 (its launches counted from zero just before it and read just
     after), the host-recomputed residual, one V-cycle's device ms by CUDA
-    events, enqueue ms and launches; returns them with its level blocks
-    (A and P, global columns) for the parent to hold against 15a's."""
+    events, enqueue ms and launches, then ``mc_profile``; returns them
+    with its level blocks (A and P, global columns) for the parent to
+    hold against 15a's."""
     import torch
     from raptor_tpu_torch.core.types import RelaxType
     from raptor_tpu_torch.device import kernels
@@ -2395,6 +2429,8 @@ def mc_controller(comm, n):
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
     out = mc_solve_report(torch, kernels, comm, dh, block, n)
+    out.update(mc_profile(torch, kernels, dh, block.to_scipy() @ np.ones(
+        n * n)))
     out.update({
         "setup_s": setup_s, "pack_s": pack_s,
         "a_blocks": [lvl.a_local.shards()[0].global_cols_csr(
@@ -2442,6 +2478,60 @@ def mc_solve_report(torch, kernels, comm, dh, block, n):
         "formats": dh.format_summary()}
 
 
+def mc_profile(torch, kernels, dh, b):
+    """16a's profile, one controller, every controller at once:
+    ``profile_cycle(PROFILE_REPS)`` (``print_times``' rows; its launches
+    counted from zero just before it and read just after, and its
+    seconds), and whether a V-cycle of ``b`` from zero after it equals one
+    before it bit for bit."""
+    def cycle():
+        return dh.host(dh.vcycle(dh.vector(np.zeros_like(b)), dh.vector(b)))
+
+    before = cycle()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rows = dh.profile_cycle(reps=PROFILE_REPS)
+    torch.cuda.synchronize()
+    profile_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    return {"profile_rows": rows, "profile_s": profile_s,
+            "profile_launches": launches,
+            "vcycle_unchanged": before.tobytes() == cycle().tobytes()}
+
+
+def print_profiles(stacked, ranks):
+    """The stacked hierarchy's ``profile_cycle`` rows beside each
+    controller's: one table a block (ms), one line a level."""
+    for key, title in (("relax_s", "smoother"), ("spmv_s", "SpMV"),
+                       ("transfer_s", "P (P^T x)")):
+        print(f"  {title} ms: level, 15a stacked, controllers "
+              + " ".join(str(r["rank"]) for r in ranks))
+        for i, row in enumerate(stacked):
+            print(f"  {row['level']:3d} {row[key] * 1e3:9.3f} "
+                  + " ".join(f"{r['profile_rows'][i][key] * 1e3:8.3f}"
+                             for r in ranks))
+
+
+def mc_profile_check(ranks, stacked):
+    """Every controller's rows: the stacked hierarchy's levels, every time
+    finite and above 0 (the transfer 0 on the coarsest level only), and
+    its V-cycle unchanged by profiling."""
+    levels = [row["level"] for row in stacked]
+    for r in ranks:
+        rows = r["profile_rows"]
+        ok = ([row["level"] for row in rows] == levels
+              and r["vcycle_unchanged"]
+              and rows[-1]["transfer_s"] == 0.0
+              and all(np.isfinite(row[k]) and row[k] > 0
+                      for row in rows for k in ("relax_s", "spmv_s"))
+              and all(np.isfinite(row["transfer_s"])
+                      and row["transfer_s"] > 0 for row in rows[:-1]))
+        if not ok:
+            raise AssertionError(f"controller {r['rank']} profile: "
+                                 f"{rows}; V-cycle unchanged "
+                                 f"{r['vcycle_unchanged']}")
+
+
 def mc_cycle(comm, n, layout=None):
     """16b and 17c, one controller: one float64 V-cycle of its n x n
     from_spmd hierarchy on its device and on the CPU (lane pad 128 on
@@ -2472,8 +2562,11 @@ def multi_controller(torch, hier15, bridge, kernels, by_path,
     each holding its shard's rows only (``mc_controller``): 15a's levels
     and operators (within SPMD_TOL), its refinements, the host residual
     below 1e-8, DIA and BDIA launched by every controller; their launches
-    summed into ``by_path["2d_mc"]``. Then ``mc_cycle`` on MC_CPU's two
-    controllers: card and CPU within CARD_CPU_TOL of max |x|."""
+    summed into ``by_path["2d_mc"]``; every controller's ``profile_cycle``
+    rows beside the stacked 15a hierarchy's (``bridge["plain"]``), their
+    launches summed into ``by_path["2d_mc_profile"]``. Then ``mc_cycle``
+    on MC_CPU's two controllers: card and CPU within CARD_CPU_TOL of max
+    |x|."""
     from raptor_tpu_torch.comm.launch import run_controllers
     n = bridge["n"]
     world = MC_CONTROLLERS
@@ -2521,6 +2614,17 @@ def multi_controller(torch, hier15, bridge, kernels, by_path,
     print(f"{world} controllers {n}^2: levels {levels}, 15a's within "
           f"{worst:.3e}, {want} refinements as 15a; launches "
           f"{by_path['2d_mc']}; {wall_s:.3f} s", flush=True)
+    stacked_rows = bridge["plain"]["profile_rows"]
+    by_path["2d_mc_profile"] = {k: sum(r["profile_launches"][k]
+                                       for r in res) for k in names}
+    print(f"16a print_times (reps {PROFILE_REPS}) on every controller at "
+          f"once, {min(r['profile_s'] for r in res):.3f}-"
+          f"{max(r['profile_s'] for r in res):.3f} s; launches "
+          f"{by_path['2d_mc_profile']}:")
+    print_profiles(stacked_rows, res)
+    mc_profile_check(res, stacked_rows)
+    require_launches(f"{world} controllers' profiles",
+                     by_path["2d_mc_profile"])
     cpu_n, cpu_world = MC_CPU
     t0 = time.perf_counter()
     cyc = run_controllers(cpu_world, "chip_smoke:mc_cycle", (cpu_n,),
@@ -2540,7 +2644,8 @@ def multi_controller(torch, hier15, bridge, kernels, by_path,
             "launches_per_vcycle": {
                 k: sum(r["launches_per_vcycle"][k] for r in res)
                 for k in names},
-            "ranks": ranks, "run_s": wall_s, "card_cpu_rel_err": err}
+            "ranks": ranks, "run_s": wall_s, "card_cpu_rel_err": err,
+            "stacked_profile_rows": stacked_rows}
 
 
 # phase 17: TAP and the Krylov solvers across controllers, on
@@ -3796,6 +3901,291 @@ def real_matrix(torch, kernels, by_path, gen, checks, n=DG_N):
     return out
 
 
+# phase 20: the containers and the rest of the host library. 20a: phase 3's
+# operator at CONTAINERS_N^2, its triplets (every entry of the port's
+# par_stencil_grid split into two exact halves, v/2 + v/2, in a seeded
+# scrambled order) assembled by ParCOOMatrix, whose finalize must give the
+# stencil matrix bit for bit; aniso_setup's configuration as an AMGConfig,
+# carried through to_dict, JSON and from_dict, built and set up: its levels,
+# A and P bit-equal to aniso_setup's; a float32 DeviceHierarchy refined to
+# 1e-8 with b = A 1 (made and checked through ParVector) in at most the JAX
+# package's refinements plus one, DIA and BDIA launched. The JAX package's
+# refinements (lane padding 1, float32 hierarchy refined in float64 to
+# 1e-8, b = A 1), from a CPU run at side N (2 min at 1024^2):
+#   JAX_PLATFORMS=cpu python -c "import sys, numpy as np, jax; \
+#   jax.config.update('jax_enable_x64', True); import jax.numpy as jnp; \
+#   from raptor_tpu.core.types import CoarsenType as C, InterpType as I, \
+#   RelaxType as R; from raptor_tpu.device.par import make_mesh; from \
+#   raptor_tpu.gallery.stencils import diffusion_stencil_2d as D, \
+#   par_stencil_grid as G; from raptor_tpu.multilevel.device_hierarchy \
+#   import DeviceHierarchy as DH; from \
+#   raptor_tpu.multilevel.par_multilevel import ParRugeStubenSolver as RS; \
+#   n = int(sys.argv[1]); A = G(D(0.001, np.pi / 8), (n, n), 1); ml = \
+#   RS(0.25, C.RS, I.ModClassical, relax_type=R.Chebyshev); \
+#   ml.num_smooth_sweeps = 3; ml.max_levels = 25; ml.rap_mode = \
+#   ml.interp_mode = 'host'; ml.setup(A); b = A.mult(np.ones(n * n)); _, h \
+#   = DH(ml, make_mesh(1), dtype=jnp.float32, lane_pad=1).solve_mixed(0 * \
+#   b, b, tol=1e-8, max_iter=200); print([l.A.global_num_rows for l in \
+#   ml.levels], len(h) - 1, h[-1])" N
+# 20b: phase 12's Q1 plane-stress elasticity at CONTAINERS_BSR elements,
+# its 2 x 2 blocks split into two exact halves and added one by one in a
+# seeded scrambled order through ParBCOOMatrix.add_block: finalize must
+# give par_fem's matrix bit for bit; ParBSRMatrix.to_device on the card and
+# bsr_spmv within CONTAINERS_BSR_TOL of max |y| of the host product in
+# float64; a ParBSCMatrix block round trip. 20c: the host oracles,
+# tests/test_serial_multilevel.py (SerialMultilevel against the one-shard
+# float64 DeviceHierarchy on the card at CONTAINERS_SERIAL_N^2: the same
+# cycles, residuals within rtol 1e-5, x within 1e-8) and
+# tests/test_external.py (solve_external's scipy CG, preconditioned by the
+# host V-cycle of an SSOR hierarchy at CONTAINERS_EXTERNAL_N^2, to 1e-10:
+# info 0, the residual below 1e-9, fewer than 30 iterations).
+CONTAINERS_N = 1024
+CONTAINERS_REFINEMENTS = {1024: 16, 512: 16}
+CONTAINERS_BSR = (512, 256)
+CONTAINERS_BSR_TOL = 1e-12
+# 20a's host products against products summed by other code, relative to
+# max |y|: the same order of terms, so a few ulps at most
+CONTAINERS_HOST_TOL = 1e-14
+CONTAINERS_SERIAL_N = 25
+CONTAINERS_EXTERNAL_N = 40
+CONTAINERS_EXTERNAL_ITERS = 30
+
+
+def peak_rss_mib():
+    """This process's peak resident set, MiB (``ru_maxrss`` is in KiB)."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024
+
+
+def same_csr(what, got, want):
+    """Two CSRMatrix equal bit for bit: shape, indptr, indices, data."""
+    if got.shape != want.shape or not all(
+            getattr(got, f).tobytes() == getattr(want, f).tobytes()
+            for f in ("indptr", "indices", "data")):
+        raise AssertionError(f"{what}: not the same matrix bit for bit")
+
+
+def containers_flagship(torch, kernels, by_path, seed, steps,
+                        n=CONTAINERS_N):
+    """20a (see above). Returns its summary with the solve's launches and a
+    V-cycle's."""
+    from raptor_tpu_torch.core.par_matrix import ParCOOMatrix, ParCSCMatrix
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
+    from raptor_tpu_torch.core.vector import ParVector
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.utils.config import AMGConfig
+    t0 = time.perf_counter()
+    S = par_stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n), 1)
+    g = S.global_csr
+    perm = np.random.default_rng(seed).permutation(2 * g.nnz)
+    coo = ParCOOMatrix(S.partition)
+    coo.add_values(np.tile(g.row_ids(), 2)[perm], np.tile(g.indices, 2)[perm],
+                   np.tile(g.data / 2, 2)[perm])
+    A = coo.finalize()
+    same_csr(f"ParCOO {n}^2", A.global_csr, g)
+    steps["20a assembly"] = time.perf_counter() - t0
+    del S, g, perm, coo
+
+    t0 = time.perf_counter()
+    cfg = AMGConfig(method="ruge_stuben", strong_threshold=0.25,
+                    coarsen_type=CoarsenType.RS,
+                    interp_type=InterpType.ModClassical,
+                    relax_type=RelaxType.Chebyshev, num_smooth_sweeps=3,
+                    max_levels=25, rap_mode="host", interp_mode="host")
+    carried = AMGConfig.from_dict(json.loads(json.dumps(cfg.to_dict())))
+    if carried != cfg:
+        raise AssertionError(f"AMGConfig round trip: {carried} != {cfg}")
+    ml = carried.build()
+    ml.setup(A)
+    steps["20a setup"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, ref = aniso_setup(n)
+    steps["20a aniso_setup"] = time.perf_counter() - t0
+    levels = [lvl.A.global_num_rows for lvl in ml.levels]
+    if levels != [lvl.A.global_num_rows for lvl in ref.levels]:
+        raise AssertionError(f"AMGConfig {n}^2: levels {levels}, "
+                             f"aniso_setup's "
+                             f"{[lvl.A.global_num_rows for lvl in ref.levels]}")
+    for i, (lvl, rl) in enumerate(zip(ml.levels, ref.levels)):
+        same_csr(f"AMGConfig {n}^2 A{i}", lvl.A.global_csr, rl.A.global_csr)
+        if rl.P is not None:
+            same_csr(f"AMGConfig {n}^2 P{i}", lvl.P.global_csr,
+                     rl.P.global_csr)
+    del ref
+    print(f"20a: ParCOO {n}^2 ({2 * A.nnz} halves) finalized to the stencil "
+          f"matrix bit for bit; AMGConfig through to_dict / JSON / from_dict: "
+          f"{len(levels)} levels {levels}, A and P equal aniso_setup's bit "
+          f"for bit", flush=True)
+
+    t0 = time.perf_counter()
+    dh = DeviceHierarchy(ml, dtype=torch.float32)
+    torch.cuda.synchronize()
+    steps["20a pack"] = time.perf_counter() - t0
+    part = A.partition
+    ones = ParVector.zeros(part).set_const_value(1.0)
+    b = ParVector(A.mult(ones.values), part)
+    norm_err = abs(b.norm() - math.sqrt(math.fsum(b.values ** 2))) / b.norm()
+    dot = math.fsum(b.values)
+    dot_err = abs(b.inner_product(ones) - dot) / abs(dot)
+    if not (norm_err <= 1e-12 and dot_err <= 1e-12):
+        raise AssertionError(f"ParVector: norm off by {norm_err}, inner "
+                             f"product by {dot_err}")
+    t0 = time.perf_counter()
+    want = CONTAINERS_REFINEMENTS.get(n)
+    k, by_path["2d_containers"], solve_s = drive_solve(
+        torch, dh, A, b.values, f"containers {n}^2, b = A 1", kernels,
+        limit=None if want is None else want + 1)
+    require_launches(f"containers {n}^2", by_path["2d_containers"])
+    kernels.reset_launches()
+    dh.vcycle(dh.vector(np.zeros(part.global_num_rows)),
+              dh.vector(b.values / b.norm()))
+    torch.cuda.synchronize()
+    per_cycle = dict(kernels.LAUNCHES)
+    steps["20a solve"] = time.perf_counter() - t0
+    # P0's mult_T (A is symmetric) against P0^T built by
+    # ParCSCMatrix.transpose (a row product of the transposed arrays), A's
+    # residual against a numpy row sum: neither goes through the scipy
+    # product that the port's methods make
+    rng = np.random.default_rng(seed)
+    P = ml.levels[0].P
+    xp = rng.standard_normal(P.partition.global_num_rows)
+    yt = ParCSCMatrix(P).transpose().mult(xp)
+    err_t = float(np.abs(P.mult_T(xp) - yt).max() / np.abs(yt).max())
+    x = rng.standard_normal(part.global_num_cols)
+    g = A.global_csr
+    rt = b.values - np.add.reduceat(g.data * x[g.indices], g.indptr[:-1])
+    err_r = float(np.abs(A.residual(x, b.values) - rt).max()
+                  / np.abs(rt).max())
+    print(f"20a: ParVector norm / inner product against numpy {norm_err:.3e} "
+          f"/ {dot_err:.3e}; {k} refinements (JAX {want}); a V-cycle's "
+          f"launches {per_cycle}; ParCSR P0 mult_T against ParCSC's "
+          f"transpose / A residual against a numpy row sum {err_t:.3e} / "
+          f"{err_r:.3e} of max", flush=True)
+    if not (err_t <= CONTAINERS_HOST_TOL and err_r <= CONTAINERS_HOST_TOL):
+        raise AssertionError(f"ParCSR mult_T / residual off by {err_t} / "
+                             f"{err_r} of max")
+    return {"n": n, "levels": levels, "refinements": k, "jax_refinements": want,
+            "solve_s_first": solve_s, "launches": by_path["2d_containers"],
+            "launches_per_vcycle": per_cycle, "vector_norm_rel_err": norm_err,
+            "vector_dot_rel_err": dot_err, "mult_T_rel_err": err_t,
+            "residual_rel_err": err_r}
+
+
+def containers_blocked(torch, seed, steps, size=CONTAINERS_BSR):
+    """20b (see above): the blocked assembly, the card's block SpMV and the
+    BSC round trip."""
+    from raptor_tpu_torch.core.matrix import BSRMatrix
+    from raptor_tpu_torch.core.par_matrix import ParBCOOMatrix, ParBSCMatrix
+    from raptor_tpu_torch.device.bsr import bsr_spmv
+    from raptor_tpu_torch.device.par import device_put_vector, host_vector
+    from raptor_tpu_torch.gallery.fem import par_fem
+    nx, ny = size
+    t0 = time.perf_counter()
+    K, _ = par_fem("elasticity", nx, ny, 1)
+    blocks = BSRMatrix.from_csr(K.global_csr, 2, 2)
+    rows = np.repeat(np.arange(blocks.n_block_rows), np.diff(blocks.indptr))
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(2 * len(rows))
+    coo = ParBCOOMatrix(K.partition, 2)
+    for r, c, blk in zip(np.tile(rows, 2)[perm].tolist(),
+                         np.tile(blocks.indices, 2)[perm].tolist(),
+                         np.tile(blocks.blocks / 2, (2, 1, 1))[perm]):
+        coo.add_block(r, c, blk)
+    pb = coo.finalize()
+    same_csr(f"ParBCOO {nx} x {ny}", pb.par_csr.global_csr, K.global_csr)
+    steps["20b assembly"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dA = pb.to_device("cuda")
+    x = rng.standard_normal(K.global_num_cols)
+    y = bsr_spmv(dA, device_put_vector(x, pb.partition.col_bounds,
+                                       dA.bcols_pad * 2, device="cuda"))
+    torch.cuda.synchronize()
+    ref = pb.mult(x)
+    err = float(np.abs(host_vector(y, pb.partition.row_bounds) - ref).max()
+                / np.abs(ref).max())
+    steps["20b to_device + bsr_spmv"] = time.perf_counter() - t0
+    back, want = ParBSCMatrix(pb).local_bsc(0).to_bsr(), pb.local_bsr(0)
+    bsc_equal = all(getattr(back, f).tobytes() == getattr(want, f).tobytes()
+                    for f in ("indptr", "indices", "blocks"))
+    print(f"20b: ParBCOO {nx} x {ny} ({2 * len(rows)} half blocks) finalized "
+          f"to par_fem's matrix bit for bit; bsr_spmv on the card against "
+          f"the host product {err:.3e} of max |y|; ParBSC round trip "
+          f"{'equal' if bsc_equal else 'NOT equal'}", flush=True)
+    if not (err <= CONTAINERS_BSR_TOL and bsc_equal):
+        raise AssertionError(f"20b: bsr_spmv off by {err}, BSC round trip "
+                             f"equal {bsc_equal}")
+    return {"size": [nx, ny], "half_blocks": 2 * len(rows),
+            "bsr_spmv_rel_err": err}
+
+
+def containers_oracles(torch, steps):
+    """20c (see above): SerialMultilevel against the card, solve_external."""
+    from raptor_tpu_torch.core.types import CoarsenType, InterpType, RelaxType
+    from raptor_tpu_torch.external import solve_external
+    from raptor_tpu_torch.gallery.stencils import (
+        diffusion_stencil_2d, par_stencil_grid)
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.multilevel.par_multilevel import (
+        ParRugeStubenSolver)
+    from raptor_tpu_torch.multilevel.serial import SerialMultilevel
+
+    def setup(n, **kw):
+        A = par_stencil_grid(diffusion_stencil_2d(0.001, np.pi / 8), (n, n),
+                             1)
+        ml = ParRugeStubenSolver(0.25, **kw)
+        ml.rap_mode = ml.interp_mode = "host"
+        ml.setup(A)
+        return A, ml, A.mult(np.ones(n * n))
+
+    t0 = time.perf_counter()
+    A, ml, b = setup(CONTAINERS_SERIAL_N, coarsen_type=CoarsenType.CLJP,
+                     interp_type=InterpType.ModClassical)
+    sx, sres, sit = SerialMultilevel(ml).solve(np.zeros_like(b), b)
+    dh = DeviceHierarchy(ml)
+    r = dh.solve(dh.vector(np.zeros_like(b)), dh.vector(b))
+    x_err = float(np.abs(dh.host(r.x) - sx).max())
+    res_err = float(np.max(np.abs(r.res[:sit + 1] - sres) / sres))
+    steps["20c serial"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    A, ml, b = setup(CONTAINERS_EXTERNAL_N, relax_type=RelaxType.SSOR)
+    x, info, iters = solve_external(ml, b, solver="cg", tol=1e-10)
+    rel = float(np.linalg.norm(b - A.mult(x)) / np.linalg.norm(b))
+    steps["20c solve_external"] = time.perf_counter() - t0
+    print(f"20c: SerialMultilevel {CONTAINERS_SERIAL_N}^2 {sit} cycles, the "
+          f"card's {r.n_iters}; residuals within {res_err:.3e} (relative), "
+          f"x within {x_err:.3e}; solve_external cg "
+          f"{CONTAINERS_EXTERNAL_N}^2: info {info}, {iters} iterations, "
+          f"residual {rel:.3e}", flush=True)
+    if not (r.n_iters == sit and res_err <= 1e-5 and x_err <= 1e-8):
+        raise AssertionError(f"20c: SerialMultilevel {sit} cycles against "
+                             f"the card's {r.n_iters}, residuals {res_err}, "
+                             f"x {x_err}")
+    if not (info == 0 and rel < 1e-9 and iters < CONTAINERS_EXTERNAL_ITERS):
+        raise AssertionError(f"20c: solve_external info {info}, {iters} "
+                             f"iterations, residual {rel}")
+    return {"serial_cycles": sit, "serial_res_rel_err": res_err,
+            "serial_x_err": x_err, "external_cg_iterations": iters,
+            "external_cg_rel_residual": rel}
+
+
+def containers(torch, kernels, by_path, seed):
+    """20: the containers and the host library (see above), each step's
+    seconds and the process's peak resident set."""
+    steps = {}
+    out = {"flagship": containers_flagship(torch, kernels, by_path, seed,
+                                           steps)}
+    torch.cuda.empty_cache()
+    out["blocked"] = containers_blocked(torch, seed, steps)
+    out["oracles"] = containers_oracles(torch, steps)
+    out["steps_s"] = steps
+    out["peak_rss_mib"] = peak_rss_mib()
+    print("20: " + ", ".join(f"{k} {v:.3f} s" for k, v in steps.items())
+          + f"; peak RSS {out['peak_rss_mib']:.1f} MiB", flush=True)
+    return out
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n", type=int, default=2048, help="2-D grid side")
@@ -3860,8 +4250,12 @@ def main(argv=None):
     checks = {}
     by_path = {}
 
-    # 3. 2-D setup (host), then the device hierarchy
+    # 3. 2-D setup (host), then the device hierarchy. The setup keeps its
+    # large buffers in the heap arena (``pin_arena``, which the stencil
+    # assembly calls first; called here too for the value it returns)
     t0 = time.perf_counter()
+    from raptor_tpu_torch.utils.hostmem import pin_arena
+    arena = pin_arena()
     A, ml = aniso_setup(n)
     setup_s = time.perf_counter() - t0
     print(ml.print_hierarchy())
@@ -3879,6 +4273,9 @@ def main(argv=None):
            if o[1].on_format not in ("dia", "bdia")]
     if off:
         raise AssertionError(f"2-D operators off DIA/BDIA: {off}")
+    rss3 = peak_rss_mib()
+    print(f"host arena pinned: {arena}; peak RSS after the 2-D setup and "
+          f"pack {rss3:.1f} MiB")
     phase("setup", t0)
 
     # 4. kernels against their plain versions on the real operators
@@ -3941,6 +4338,8 @@ def main(argv=None):
           f"{pack3_s:.3f} s")
     formats3 = dh3.format_summary()
     print("\n".join(formats3))
+    rss6 = peak_rss_mib()
+    print(f"peak RSS after the 3-D setup and pack {rss6:.1f} MiB")
     phase("3-D setup", t0)
 
     # 7. the 3-D main path: b = A 1 (the JAX package's record:
@@ -4119,6 +4518,13 @@ def main(argv=None):
     summary_dg = real_matrix(torch, kernels, by_path, gen, checks)
     phase("the real-matrix path", t0)
 
+    # 20. the containers and the rest of the host library
+    t0 = time.perf_counter()
+    summary_20 = containers(torch, kernels, by_path, args.seed)
+    summary_20["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"phase20": summary_20}))
+    phase("the containers and the host library", t0)
+
     out = []
     totals = {name: sum(p[name] for p in by_path.values())
               for name in kernels.LAUNCHES}
@@ -4168,7 +4574,9 @@ def main(argv=None):
                 "2d_unsparsified": summary_18["sparsify"]["plain"][
                     "launches_per_vcycle"][name],
                 "dg_512_pcg_iteration": summary_dg[
-                    "launches_per_pcg_iteration"][name]},
+                    "launches_per_pcg_iteration"][name],
+                "2d_containers": summary_20["flagship"][
+                    "launches_per_vcycle"][name]},
             "float64": {k: c64[k] for k in ("operator", "max_abs_err",
                                             "rel_err", "ms", "plain_ms",
                                             "library_ms", "bound_ms")},
@@ -4184,7 +4592,9 @@ def main(argv=None):
                                            "slots", "fill", "col_bytes")
                           if k in c}
                        for c in cs]})
+    summary2.update(arena=arena, peak_rss_mib=rss3)
     summary3 = {**host_setups["3d"], "n3": n3, "pack_s": pack3_s,
+                "peak_rss_mib": rss6,
                 "formats": formats3, "solve_s_first": solve3_s,
                 "solve_s_warm": warm3_s,
                 "solve_refinements_random": len(hist3r) - 1,
@@ -4196,6 +4606,7 @@ def main(argv=None):
                       "tap": summary_tap, "spmd": summary_spmd,
                       "mc": summary_mc, "mc_tap": summary_mct,
                       "phase18": summary_18, "dg_512": summary_dg,
+                      "phase20": summary_20,
                       "copy_gbs": copy_gbs,
                       "run_s": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": out}))

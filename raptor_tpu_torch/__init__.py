@@ -58,15 +58,33 @@ bit-identical hierarchies.
   messages and bytes of a halo-exchange or TAP plan by size class and
   locality).
 
+- **Containers and the host library**: the serial ``core.matrix``
+  formats (CSR, COO, CSC, BSR, BCOO, BSC, ``compare``), the row-partitioned
+  ``core.par_matrix`` ones (``ParCSRMatrix``; ``ParCOOMatrix`` and
+  ``ParBCOOMatrix`` for assembly; ``ParCSCMatrix``, ``ParBSRMatrix`` and
+  ``ParBSCMatrix``, also on local views over a transport),
+  ``core.vector.ParVector``, ``utils.config.AMGConfig`` (a dict of the
+  knobs, portable between the packages, that builds the solver),
+  ``multilevel.serial.SerialMultilevel`` (the host V-cycle oracle),
+  ``external`` (``to_torch`` / ``from_torch``, the hierarchy as a scipy
+  Krylov preconditioner) and ``utils.hostmem.pin_arena`` (the setup's
+  large buffers kept in the heap arena).
+
 Device entry points take ``device=`` and default to ``"cuda"``; they raise
-when CUDA is asked for and absent.
+when CUDA is asked for and absent. Across controllers every controller
+calls ``DeviceHierarchy.profile_cycle`` / ``print_times`` together and gets
+its own shard's rows.
 """
 
 from raptor_tpu_torch.aggregation.solver import ParSmoothedAggregationSolver
+from raptor_tpu_torch.core.matrix import (
+    BCOOMatrix, BSCMatrix, BSRMatrix, COOMatrix, CSCMatrix, CSRMatrix)
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import (
-    AggType, CoarsenType, InterpType, ProlongType, RelaxType, StrengthType)
+    ZERO_TOL, AggType, CoarsenType, InterpType, ProlongType, RelaxType,
+    StrengthType)
+from raptor_tpu_torch.core.vector import ParVector
 from raptor_tpu_torch.gallery.fem import par_fem
 from raptor_tpu_torch.krylov.profile import pcg_time_split
 from raptor_tpu_torch.linalg.sparsify import injection_matrix, sparsify
@@ -77,11 +95,12 @@ from raptor_tpu_torch.profiling.comm_model import (
     CommStats, model_comm_plan, model_tap_plan)
 from raptor_tpu_torch.profiling.timers import device_trace
 
-__all__ = ["AggType", "BSRDeviceHierarchy", "CoarsenType", "CommStats",
-           "InterpType", "ParBSRRugeStubenSolver", "ParCSRMatrix",
-           "ParRugeStubenSolver",
-           "ParSmoothedAggregationSolver", "Partition", "ProlongType",
-           "RelaxType", "StrengthType", "device_trace", "injection_matrix",
-           "model_comm_plan", "model_tap_plan", "par_fem", "pcg_time_split",
-           "sparsify"]
+__all__ = ["AggType", "BCOOMatrix", "BSCMatrix", "BSRDeviceHierarchy",
+           "BSRMatrix", "COOMatrix", "CSCMatrix", "CSRMatrix", "CoarsenType",
+           "CommStats", "InterpType", "ParBSRRugeStubenSolver",
+           "ParCSRMatrix", "ParRugeStubenSolver",
+           "ParSmoothedAggregationSolver", "ParVector", "Partition",
+           "ProlongType", "RelaxType", "StrengthType", "ZERO_TOL",
+           "device_trace", "injection_matrix", "model_comm_plan",
+           "model_tap_plan", "par_fem", "pcg_time_split", "sparsify"]
 __version__ = "0.1.0"

@@ -19,6 +19,7 @@ from raptor_tpu_torch.core.matrix import CSRMatrix
 from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.partition import Partition
 from raptor_tpu_torch.core.types import ZERO_TOL
+from raptor_tpu_torch.utils.hostmem import pin_arena
 
 
 def diffusion_stencil_2d(eps: float = 1.0, theta: float = 0.0) -> np.ndarray:
@@ -51,6 +52,9 @@ def stencil_grid(stencil: np.ndarray, grid, dim: int = None) -> CSRMatrix:
     stencil = np.asarray(stencil, dtype=np.float64).ravel()
     if len(stencil) != 3 ** dim:
         raise ValueError(f"stencil of {len(stencil)} entries for dim {dim}")
+    # large outputs (1.3 GB at 128^3): through the persistent heap arena,
+    # so that later setup passes reuse their pages (utils/hostmem.py)
+    pin_arena()
 
     n_v = int(np.prod(grid))
     strides = np.ones(dim, dtype=np.int64)

@@ -459,13 +459,12 @@ class DeviceHierarchy:
         enqueue, as in a cycle; the host clock on the CPU). The hierarchy
         is left as it was.
 
-        Across controllers every controller would have to call it
-        together, block by block: not done yet (ROADMAP item 24)."""
-        if self.comm is not None:
-            raise NotImplementedError(
-                "profile_cycle across controllers: every controller would "
-                "have to call it together (ROADMAP Queue 1 item 24)")
-
+        Across controllers every controller calls it together: each has
+        the same chains in the same order (every level's, and no
+        ``transfer_s`` chain on the coarsest level on any), so each step's
+        halo exchanges meet their partners; the rescale stays on the
+        controller's own shard and adds no collective. Each controller
+        gets its own shard's rows."""
         chains = {}
         for li, lvl in enumerate(self.levels):
             b = lvl.A.row_mask.to(self.dtype)

@@ -49,6 +49,7 @@ from raptor_tpu_torch.ruge_stuben.interpolation import (
     filter_interp, par_interpolation)
 from raptor_tpu_torch.ruge_stuben.strength import strength
 from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+from raptor_tpu_torch.utils.hostmem import pin_arena
 
 SETUP_MODES = ("global", "distributed")
 
@@ -160,6 +161,9 @@ class ParMultilevel:
 
     def setup_helper(self, af: ParCSRMatrix) -> None:
         """par_multilevel.hpp:120-206."""
+        # keep the setup's large transient buffers in the persistent heap
+        # arena (utils/hostmem.py)
+        pin_arena()
         self.levels = [Level(A=af.copy())]
         if self.weights is None:
             # reference: per-rank srand(2448422 + first_local_row); the

@@ -1,10 +1,12 @@
 """Workers of the port's multi-process tests (tests/test_torch_netgroup.py,
 tests/test_torch_multicontroller.py, tests/test_torch_spmd.py,
 tests/test_torch_tapgroup.py, tests/test_torch_mc_tap.py,
-tests/test_torch_mc_krylov.py), beside ``_torch_parity``.
+tests/test_torch_mc_krylov.py, tests/test_torch_mc_profile.py), beside
+``_torch_parity``.
 
 The controller functions (``bridge``, ``group_ops``, ``tapgroup_setup``,
-``tap_solve``, ``krylov``, ``fails``, ``sleeps``) run in interpreters
+``tap_solve``, ``krylov``, ``profile``, ``fails``, ``sleeps``) run in
+interpreters
 that ``raptor_tpu_torch.comm.launch`` starts, one per controller: they
 import the port only, never JAX.
 ``transport_ops`` also runs under the fork launcher ``run_spmd`` and
@@ -294,6 +296,50 @@ def krylov(comm, n, max_levels, solvers, tol, max_iter):
                   max_iter=max_iter, **kw)
         out[name] = {"x": host_vector(r.x, rb, comm.rank), "res": r.res,
                      "n_iters": r.n_iters}
+    return out
+
+
+def profile(comm, n, layouts, reps):
+    """One controller of ``profile_cycle`` across controllers: its rows of
+    the n x n problem, ``spmd_rs_setup`` (HMIS + extended+i) over its
+    ``SocketGroup``, then for each entry of ``layouts`` (None: the plain
+    exchange; a (hosts, local) layout: TAP on every level of
+    ``make_mesh2(*layout)``) a float64 Chebyshev ``from_spmd`` hierarchy
+    with ``comm``: one V-cycle of b = A 1 from zero, ``profile_cycle`` and
+    ``print_times`` (``reps`` each), and the same V-cycle again."""
+    from raptor_tpu_torch.comm.multiproc import MultiProcessTransport
+    from raptor_tpu_torch.comm.spmd import spmd_rs_setup
+    from raptor_tpu_torch.core.types import RelaxType
+    from raptor_tpu_torch.device.par import make_mesh2
+    from raptor_tpu_torch.multilevel.device_hierarchy import DeviceHierarchy
+    from raptor_tpu_torch.utils.glibc_rand import form_rand_weights
+
+    a, block = aniso_view(n, comm.world, comm.rank)
+
+    def make_transport(m):
+        return MultiProcessTransport(comm.group, m)
+
+    hier = spmd_rs_setup(a, form_rand_weights(n * n, 0), make_transport)
+    b = block.to_scipy() @ np.ones(n * n)
+    out = {"rank": comm.rank}
+    for layout in layouts:
+        tap = ({} if layout is None else
+               {"mesh": make_mesh2(*layout), "tap_amg": 0})
+        dh = DeviceHierarchy.from_spmd(
+            hier, make_transport, relax_type=RelaxType.Chebyshev,
+            device=comm.device, comm=comm, **tap)
+
+        def cycle():
+            return dh.host(dh.vcycle(dh.vector(np.zeros_like(b)),
+                                     dh.vector(b)))
+
+        before = cycle()
+        rows = dh.profile_cycle(reps)
+        table = dh.print_times(reps)
+        out[layout] = {"rows": rows, "table": table, "before": before,
+                       "after": cycle(),
+                       "tap_levels": [lvl.TA is not None
+                                      for lvl in dh.levels]}
     return out
 
 

@@ -2,9 +2,10 @@
 (``profiling.comm_model``) equal to the JAX package's field by field on
 tests/test_aux.py's plans, ``DeviceHierarchy.profile_cycle`` /
 ``print_times`` (JAX's rows and table), ``krylov.profile.pcg_time_split``,
-``profiling.timers.device_trace`` and the raise across controllers. The
-times are the CPU's and are checked for shape only; the card's case is in
-tests/test_torch_profiling_cuda.py, which imports no JAX.
+and ``profiling.timers.device_trace``. The times are the CPU's and are
+checked for shape only; the card's case is in
+tests/test_torch_profiling_cuda.py, which imports no JAX, and
+``profile_cycle`` across controllers in tests/test_torch_mc_profile.py.
 """
 
 import dataclasses
@@ -191,10 +192,3 @@ def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     with open(path) as f:
         names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
     assert any(n.startswith("aten::") for n in names)
-
-
-def test_profile_cycle_across_controllers_raises(monkeypatch):
-    dh, _ = _hierarchy()
-    monkeypatch.setattr(dh, "comm", object())
-    with pytest.raises(NotImplementedError, match="item 24"):
-        dh.profile_cycle()
