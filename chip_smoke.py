@@ -242,12 +242,25 @@ no phase of it checked the kernel:
    (``phase20``) comes before the kernel list;
 21. the twins of the JAX package's example scripts (``examples_torch/``):
    each one's ``main`` called in this process on the card at its JAX
-   script's default arguments (``EXAMPLES``; ``benchmark_tap_amg.py`` at
-   a smaller side), its seconds, counts and kernel launches printed, every
+   script's default arguments (``EXAMPLES``; ``benchmark_tap_amg.py``,
+   ``profile_amg.py`` and ``benchmark_setup_sweeps.py`` at smaller
+   sides), its seconds, counts and kernel launches printed, every
    solve held to the JAX script's count at the same arguments on the CPU
-   plus one (``EXAMPLE_HOLDS``), and every twin that runs on the device
-   launching a ported kernel. Its JSON line (``phase21``) comes before the
-   kernel list.
+   plus one (``EXAMPLE_HOLDS``; the deterministic host counts exactly,
+   ``EXAMPLE_EXACT``; nek5000's PCG, which stops at its cap, by its final
+   residual too, ``EX_FINAL_RES``), and every twin that runs on the
+   device launching a ported kernel (the kernels of ``EX_REQUIRES``
+   each). The matrix-file twins read the files the phase writes first
+   (``example_inputs``: the rotated anisotropic operator at 256^2 as
+   ``.pm``, the SIPG DG operator at 64^2 elements as ``.mtx``); the
+   transfer-formats twin packs level 0's P and P^T at 48^3 in every
+   format (windowed ELL, the sorted scatter and BELL launched); the
+   overlap twin's two orders bit-equal, and a ``torch.profiler`` trace of
+   a chain of each order (``overlap_trace``: the host's calls into CUDA
+   against the device's busy time and gaps). Its JSON line (``phase21``),
+   with the overlap's gain and trace and the L2 sweep's resident and
+   cleared rates beside the flush's own time, comes before the kernel
+   list.
 
 The last two lines are the card's ``name, power.limit`` and then
 ``{"ok": true, "device": {...}}``; the line before them lists the kernels.
@@ -4208,21 +4221,53 @@ def containers(torch, kernels, by_path, seed):
 # place of its 512^2, whose flow phase 14a runs (its float32 SOR cycle there
 # takes about 450 ms, and the twin solves 11 times).
 EX_TAP_N = 64
+# the matrix files of the twins that read one (the JAX scripts' defaults
+# lie in the reference's tree), written into the phase's temporary directory
+# ("{tmp}" in an argument): the flagship's operator at 256^2 and phase 19's
+# SIPG DG operator (penalty DG_SIGMA) at 64^2 elements, 16,384 rows.
+# benchmark_setup_engines.py runs at EX_ENGINES_N^3 in place of its 128^3
+# (phase 13 sets up 80^3 on the card's engines), benchmark_spmv_sweep.py
+# without its 96^3: both cut for the script's time (64^3 and the sweep's
+# 96^3 took about 12 s more on an H100).
+EX_READER_N = 256
+EX_DG_N = 64
+# benchmark_setup_sweeps.py at EX_SWEEPS_N^2 in place of its 64^2 and
+# profile_amg.py at EX_PROFILE_AMG_N^2 in place of its 512^2: cut for the
+# script's time once the last seven twins joined the phase (on a slower
+# card machine the two took 44 and 24 s at their defaults)
+EX_SWEEPS_N = 48
+EX_PROFILE_AMG_N = 256
+EX_ENGINES_N = 48
+EX_SWEEP_SIZES = (32, 48, 64)
 EXAMPLES = (("example", ()), ("coo_csr_example", ()),
             ("matop_example", ()), ("benchmark_amg", ()),
-            ("benchmark_pcg", ()), ("profile_pcg", ()), ("profile_amg", ()),
+            ("benchmark_pcg", ()), ("profile_pcg", ()),
+            ("profile_amg", (str(EX_PROFILE_AMG_N),)),
             ("benchmark_gmres", ()), ("benchmark_solve", ()),
-            ("benchmark_sa", ()), ("benchmark_setup_sweeps", ()),
+            ("benchmark_sa", ()), ("benchmark_setup_sweeps", (str(EX_SWEEPS_N),)),
             ("benchmark_bsr_amg", ()), ("benchmark_setup", ()),
             ("benchmark_spgemm", ()), ("benchmark_spmv", ()),
             ("benchmark_tap_spmv", ()),
             ("benchmark_tap_amg", (str(EX_TAP_N),)),
             ("model_tap_steps", ()), ("profile_comm_levels", ()),
-            ("run_multiproc_setup", ()))
+            ("run_multiproc_setup", ()),
+            ("benchmark_reader", (f"{{tmp}}/aniso{EX_READER_N}.pm",)),
+            ("benchmark_nek5000", (f"{{tmp}}/dg{EX_DG_N}.mtx",)),
+            ("benchmark_tap_setup", ()),
+            ("benchmark_setup_engines", (str(EX_ENGINES_N), "3", "PMIS",
+                                         "Extended")),
+            ("benchmark_transfer_formats", ("48", "{tmp}")),
+            ("benchmark_spmv_sweep", ("f64", *map(str, EX_SWEEP_SIZES))),
+            ("benchmark_spmv_overlap", ()))
 # the twins that run on the host only, in both packages (the setup's device
 # engines are torch ops): every other twin launches a ported kernel
 EX_HOST_ONLY = {"matop_example", "benchmark_setup", "benchmark_spgemm",
-                "model_tap_steps", "run_multiproc_setup"}
+                "model_tap_steps", "run_multiproc_setup",
+                "benchmark_tap_setup", "benchmark_setup_engines"}
+# the kernels a twin's path must launch, each at least once
+EX_REQUIRES = {"benchmark_reader": ("dia_spmv",),
+               "benchmark_transfer_formats": (
+                   "wind_ell_spmv", "swellt_spmv_T", "bell_spmv")}
 # the JAX scripts' iteration counts at the same arguments on the CPU, which
 # the twins' counts may pass by one at most (the card's SOR adds with
 # atomics, and its float32 sums in its own order), from
@@ -4234,29 +4279,71 @@ EX_HOST_ONLY = {"matop_example", "benchmark_setup", "benchmark_spgemm",
 # JAX_ENABLE_X64=1: the script leaves JAX's 64-bit mode off, and in float32
 # its 1e-8 lies below the rounding (65 and 17 iterations there, the
 # rounding's); the twin runs float64. benchmark_pcg.py's plain CG stops at
-# its cap in float32 (20,000). profile_amg.py's float32 solve stalls just
-# above its 1e-6 in both packages (JAX at 1.640e-6 after 33 cycles, the
-# port on the CPU at 1.662e-6 after 36): the stall guard ends it once four
-# cycles in a row gain less than 0.1%, on a plateau where the rounding
-# sets each step, so its count is the rounding's. It is held to the cycles
-# to 1e-5, above the plateau (JAX: 11; EX_CYCLES_TO), and printed beside
-# JAX's 33.
+# its cap in float32 (20,000). profile_amg.py's float32 solve (256) stalls
+# just above its 1e-6 in both packages (JAX at its cap of 100 cycles at
+# 1.165e-6, the port on the CPU at 1.183e-6 after 50, where its stall guard
+# ends it once four cycles in a row gain less than 0.1%), on a plateau
+# where the rounding sets each step, so its count is the rounding's. It is
+# held to the cycles to 1e-5, above the plateau (JAX: 12; EX_CYCLES_TO; 11
+# at 512^2), and printed beside JAX's 100. benchmark_setup_sweeps.py runs
+# at 48. benchmark_nek5000.py reads the DG file that example_inputs
+# writes, made for the JAX script by
+#   python -c "import sys; from raptor_tpu.gallery.dg import dg_diffusion; \
+#   from raptor_tpu.gallery.io import write_mm; n = int(sys.argv[1]); \
+#   write_mm(f'dg{n}.mtx', dg_diffusion(n, n, 10.0))" 64
+# and run as examples/benchmark_nek5000.py dg64.mtx (4 shards); the other
+# new twins' scripts as benchmark_setup_engines.py 48 3 PMIS Extended,
+# benchmark_spmv_sweep.py f64 32 48 64 and benchmark_tap_setup.py (48 4
+# 2). benchmark_nek5000.py's SOR(1) preconditioner (the default
+# hierarchy's) is not symmetric, and PCG stops at its cap of 200
+# iterations at 3.432e-05 in both packages on the CPU, so its final
+# residual is held too (EX_FINAL_RES). The counts of the host setup and
+# the host-only twins, the same on every machine, are held exactly
+# (EXAMPLE_EXACT): the TAP setup's sends across nodes and levels, the
+# nek5000 partitions' halo values and edge cuts and its hierarchy, the
+# engines' interpolation pattern and nnz, the sweep's format of each size;
+# and the overlap's two orders bit-equal.
 EX_CYCLES_TO = {"profile_amg": 1e-5}
 EXAMPLE_HOLDS = {
     "example": {"iterations": 23},
     "benchmark_amg": {"iterations": 23},
     "benchmark_pcg": {"cg_iterations": 20000, "pcg_iterations": 7},
     "profile_pcg": {"pcg_iterations": 7},
-    "profile_amg": {"cycles_to_1e-05": 11},
+    "profile_amg": {"cycles_to_1e-05": 12},
     "benchmark_gmres": {"gmres_iterations": 46, "amg_gmres_iterations": 11},
     "benchmark_solve": {"iterations": 7},
     "benchmark_sa": {"iterations": 13},
     "benchmark_setup_sweeps": {"sweeps": [
-        {"flat": 288, "TAP": 288}, {"flat": 143, "TAP": 143},
-        {"flat": 96, "TAP": 96}, {"flat": 80, "TAP": 80}]},
+        {"flat": 228, "TAP": 228}, {"flat": 86, "TAP": 86},
+        {"flat": 77, "TAP": 77}, {"flat": 57, "TAP": 57}]},
     "benchmark_bsr_amg": {"iterations": 34, "pcg_iterations": 25},
     "benchmark_tap_amg": {"plain": 16, "tap": {k: 16 for k in range(6)}},
+    "benchmark_nek5000": {"pcg_iterations": 200},
 }
+EXAMPLE_EXACT = {
+    "benchmark_tap_setup": {
+        "flat": {"inter_node_sends": 880, "levels": 5},
+        "tap": {"inter_node_sends": 220, "levels": 5}},
+    "benchmark_nek5000": {
+        "halo_values": {"naive": 1536, "rcm": 1242, "kway": 1402},
+        "edge_cut": {"naive": 4608, "rcm": 7288, "kway": 5480},
+        "levels": [[16384, 259072], [8192, 183582], [3971, 80863],
+                   [989, 19473], [240, 4406], [56, 866], [16, 180]]},
+    "benchmark_setup_engines": {"pattern_eq": True, "p_nnz": 971348},
+    "benchmark_spmv_sweep": {"sizes": {n: {"format": "dia"}
+                                       for n in EX_SWEEP_SIZES}},
+    "benchmark_spmv_overlap": {"bit_equal": True},
+}
+# the final relative residual of a twin's float64 solve, held to the JAX
+# script's on the CPU at ``rtol``, where an iteration count alone cannot
+# fail: nek5000's PCG stops at its cap of 200 in both packages. JAX's value
+# from the recorded history of benchmark_nek5000.py dg64.mtx (the command
+# above, recorded by tests/_torch_examples.py:run_jax). The card's sound
+# runs gave 3.431756999684617e-05 (1.3e-12 from JAX's), the port on the
+# CPU 1.9e-12 at most along the whole history; the same solve in float32
+# lands 1.8e-3 away, so 1e-6 (the CPU tests' same_history) tells a sound
+# float64 solve from a wrong one with room on both sides.
+EX_FINAL_RES = {"benchmark_nek5000": (3.4317569996802406e-05, 1e-6)}
 PHASE_COUNT = 21
 # the phases whose objects a phase uses, run with it when it is selected
 NEEDS = {4: (3,), 5: (3,), 7: (6,), 8: (6,), 9: (6, 8),
@@ -4316,6 +4403,42 @@ def held(what, got, want):
                              f"{want} + 1 at most")
 
 
+def final_res_held(what, residuals, want, rtol):
+    """Raise unless the last of ``residuals`` is within ``rtol`` (relative)
+    of ``want``."""
+    got = float(residuals[-1])
+    if not abs(got - want) <= rtol * want:
+        raise AssertionError(f"{what}: final relative residual {got!r}, "
+                             f"the JAX script's {want!r} (rtol {rtol})")
+
+
+def exact(what, got, want):
+    """Raise unless every count of ``want`` (nested dicts) equals ``got``'s
+    (tuples read as lists)."""
+    for k, v in want.items():
+        if isinstance(v, dict):
+            exact(f"{what}.{k}", got[k], v)
+        elif json.loads(json.dumps(got[k])) != v:
+            raise AssertionError(f"{what}.{k}: {got[k]}, the JAX script's "
+                                 f"{v}")
+
+
+def example_inputs(tmp):
+    """Write the matrix files of the twins that read one into ``tmp``;
+    returns their sizes in bytes."""
+    from raptor_tpu_torch.gallery import io
+    from raptor_tpu_torch.gallery.dg import dg_diffusion
+    from raptor_tpu_torch.gallery.stencils import (diffusion_stencil_2d,
+                                                   stencil_grid)
+    n = EX_READER_N
+    io.write_pm(os.path.join(tmp, f"aniso{n}.pm"), stencil_grid(
+        diffusion_stencil_2d(0.001, np.pi / 8), (n, n)))
+    io.write_mm(os.path.join(tmp, f"dg{EX_DG_N}.mtx"),
+                dg_diffusion(EX_DG_N, EX_DG_N, sigma=DG_SIGMA))
+    return {f: os.path.getsize(os.path.join(tmp, f))
+            for f in sorted(os.listdir(tmp))}
+
+
 def brief(counts):
     """A twin's counts for the log: every history as its length and last
     value."""
@@ -4335,35 +4458,183 @@ def examples_phase(torch, kernels, by_path):
     """Phase 21: every twin of ``EXAMPLES`` in turn, its launches under
     ``by_path["example_<twin>"]``; returns each one's arguments, seconds,
     counts and launches."""
-    import importlib
+    import tempfile
     out = {}
-    for name, args in EXAMPLES:
-        mod = importlib.import_module(f"examples_torch.{name}")
-        print(f"[21] examples_torch/{name}.py {' '.join(args)}", flush=True)
-        kernels.reset_launches()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke21_") as tmp:
         t0 = time.perf_counter()
-        counts = mod.main([*args, "--device", "cuda"])
-        torch.cuda.synchronize()
-        secs = time.perf_counter() - t0
-        launches = by_path[f"example_{name}"] = dict(kernels.LAUNCHES)
-        if counts["launches"] != launches:
-            raise AssertionError(f"{name}: its launches {counts['launches']}"
-                                 f", the wrappers' counts {launches}")
-        if name in EX_CYCLES_TO:
-            tol = EX_CYCLES_TO[name]
-            res = counts["residuals"]
-            counts[f"cycles_to_{tol:.0e}"] = next(
-                (k for k, r in enumerate(res) if r <= tol), len(res))
-        if name in EXAMPLE_HOLDS:
-            held(name, counts, EXAMPLE_HOLDS[name])
-        if name not in EX_HOST_ONLY and not any(launches.values()):
-            raise AssertionError(f"{name} launched no ported kernel")
-        out[name] = {"args": list(args), "seconds": secs,
-                     "counts": brief(counts), "launches": launches}
-        print(f"[21] {name}: {secs:.3f} s; counts "
-              f"{json.dumps(brief({k: v for k, v in counts.items() if k != 'launches'}))}; "
-              f"launches {launches}", flush=True)
-        torch.cuda.empty_cache()
+        files = example_inputs(tmp)
+        print(f"[21] matrix files {files} in "
+              f"{time.perf_counter() - t0:.3f} s", flush=True)
+        for name, args in EXAMPLES:
+            args = [a.format(tmp=tmp) for a in args]
+            out[name] = run_twin(torch, kernels, by_path, name, args)
+            out[name]["args"] = [a.replace(tmp, "{tmp}") for a in args]
+    return out
+
+
+def run_twin(torch, kernels, by_path, name, args):
+    """One twin of phase 21 on the card: its seconds, counts and launches,
+    held as ``examples_phase`` says."""
+    import importlib
+    mod = importlib.import_module(f"examples_torch.{name}")
+    print(f"[21] examples_torch/{name}.py {' '.join(args)}", flush=True)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    counts = mod.main([*args, "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = by_path[f"example_{name}"] = dict(kernels.LAUNCHES)
+    if counts["launches"] != launches:
+        raise AssertionError(f"{name}: its launches {counts['launches']}"
+                             f", the wrappers' counts {launches}")
+    if name in EX_CYCLES_TO:
+        tol = EX_CYCLES_TO[name]
+        res = counts["residuals"]
+        counts[f"cycles_to_{tol:.0e}"] = next(
+            (k for k, r in enumerate(res) if r <= tol), len(res))
+    if name in EXAMPLE_HOLDS:
+        held(name, counts, EXAMPLE_HOLDS[name])
+    if name in EXAMPLE_EXACT:
+        exact(name, counts, EXAMPLE_EXACT[name])
+    if name in EX_FINAL_RES:
+        final_res_held(name, counts["residuals"], *EX_FINAL_RES[name])
+    if name not in EX_HOST_ONLY and not any(launches.values()):
+        raise AssertionError(f"{name} launched no ported kernel")
+    require_launches(name, launches, EX_REQUIRES.get(name, ()))
+    print(f"[21] {name}: {secs:.3f} s; counts "
+          f"{json.dumps(brief({k: v for k, v in counts.items() if k != 'launches'}))}; "
+          f"launches {launches}", flush=True)
+    torch.cuda.empty_cache()
+    return {"seconds": secs, "counts": brief(counts), "launches": launches}
+
+
+def twin_figures(twins):
+    """The overlap's gain, the L2 sweep's rates and the transfer formats'
+    ms an apply from phase 21's twins, for its JSON line."""
+    ov = twins["benchmark_spmv_overlap"]["counts"]
+    sw = twins["benchmark_spmv_sweep"]["counts"]
+    tf = twins["benchmark_transfer_formats"]["counts"]
+    return {
+        "overlap": {"overlapped_us": ov["overlapped_s"] * 1e6,
+                    "serialized_us": ov["serialized_s"] * 1e6,
+                    "gain_pct": ov["gain_pct"]},
+        "l2_sweep": {
+            "l2_bytes": sw["l2_bytes"], "flush_mb": sw["flush_mb"],
+            "flush_us": sw["flush_s"] * 1e6,
+            "sizes": {n: {k: v[k] for k in ("format", "packed_mb",
+                                             "resident_gnnz_s",
+                                             "cleared_gnnz_s")}
+                      for n, v in sw["sizes"].items()}},
+        "transfer_ms": {op: {f: [r["format"], r["ms"]]
+                             for f, r in tf[op].items()}
+                        for op in ("P", "Pt")}}
+
+
+# the overlap twin's operator, traced for OV_TRACE_K products of each order
+OV_TRACE_N, OV_TRACE_K = 64, 20
+# the Chrome trace's categories of host calls into CUDA and of device work
+HOST_API = ("cuda_runtime", "cuda_driver")
+DEVICE_WORK = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def busy_us(spans):
+    """Microseconds that the union of the ``(start, end)`` spans covers."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def overlap_trace(torch):
+    """Phase 21: where ``spmv_overlap``'s time goes beside ``spmv``'s, on
+    the overlap twin's operator (the float32 27-point operator at
+    OV_TRACE_N^3 over 8 stacked shards). For each order, a chain of
+    OV_TRACE_K products of one x, each a microsecond figure a product:
+    ``wall_us`` (the chain behind a synchronize, host clock),
+    ``enqueue_us`` (the chain's calls alone, no synchronize: what the host
+    takes to hand a product over), and under ``torch.profiler``: the host's
+    calls into CUDA but the closing synchronize (``api_calls``, ``api_us``,
+    ``api_by_name``), the device's work (``device_ops``; ``busy_us``, the
+    union of its spans across streams; ``span_us``, first start to last
+    end) and ``gap_us = span_us - busy_us``, the time the device waits;
+    ``complete`` is false where the trace holds fewer device records than
+    kernel launches (the profiler dropped some: its device figures are then
+    short)."""
+    import shutil
+    import tempfile
+    from raptor_tpu_torch.device import par as dpar
+    from raptor_tpu_torch.gallery.stencils import (laplace_stencil_27pt,
+                                                   par_stencil_grid)
+    from raptor_tpu_torch.profiling.timers import device_trace
+    t0 = time.perf_counter()
+    n, k = OV_TRACE_N, OV_TRACE_K
+    A = par_stencil_grid(laplace_stencil_27pt(), (n, n, n), 8)
+    dA = dpar.device_put_matrix(A, dtype=torch.float32, lane_pad=128,
+                                device="cuda")
+    x = dpar.device_put_vector(
+        np.random.default_rng(0).random(A.global_num_cols),
+        A.partition.col_bounds, dA.cols_pad, dtype=torch.float32,
+        device="cuda")
+    orders = {"overlapped": dpar.spmv_overlap, "serialized": dpar.spmv}
+    out = {}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke21_trace_")
+    try:
+        for name, op in orders.items():
+            def chain():
+                for _ in range(k):
+                    op(dA, x)
+            chain()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            chain()
+            t_enq = time.perf_counter() - t1
+            torch.cuda.synchronize()
+            t_wall = time.perf_counter() - t1
+            with device_trace(tmp) as path:
+                chain()
+            with open(path) as f:
+                ev = [e for e in json.load(f)["traceEvents"]
+                      if e.get("ph") == "X"]
+            # the synchronize that closes the trace waits for the device:
+            # it is no cost of a product's enqueue
+            api = [e for e in ev if e.get("cat") in HOST_API
+                   and "Synchronize" not in e.get("name", "")]
+            dev = [(e["ts"], e["ts"] + e["dur"]) for e in ev
+                   if e.get("cat") in DEVICE_WORK]
+            if not dev:
+                raise AssertionError(f"overlap trace ({name}): the "
+                                     f"profiler recorded no device work")
+            by_name = {}
+            for e in api:
+                by_name[e["name"]] = by_name.get(e["name"], 0.0) + e["dur"]
+            span = max(b for _, b in dev) - min(a for a, _ in dev)
+            busy = busy_us(dev)
+            launched = sum(e["name"] == "cudaLaunchKernel" for e in api)
+            out[name] = {
+                "wall_us": t_wall / k * 1e6, "enqueue_us": t_enq / k * 1e6,
+                "api_calls": len(api) / k,
+                "api_us": sum(e["dur"] for e in api) / k,
+                "api_by_name": {m: v / k for m, v in sorted(
+                    by_name.items(), key=lambda kv: -kv[1])},
+                "device_ops": len(dev) / k, "busy_us": busy / k,
+                "span_us": span / k, "gap_us": (span - busy) / k,
+                "complete": len(dev) >= launched}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    for name in orders:
+        r = out[name]
+        print(f"[21] overlap trace, {name} ({n}^3, 8 shards, float32; us "
+              f"a product over {k}): wall {r['wall_us']:.1f}, enqueue "
+              f"{r['enqueue_us']:.1f}; traced: {r['api_calls']:.1f} CUDA "
+              f"calls {r['api_us']:.1f}, {r['device_ops']:.1f} device ops "
+              f"busy {r['busy_us']:.1f} of span {r['span_us']:.1f} (gaps "
+              f"{r['gap_us']:.1f}; complete {r['complete']}); calls by name "
+              f"{ {m: round(v, 1) for m, v in r['api_by_name'].items()} }",
+              flush=True)
+    print(f"[21] overlap trace in {out['seconds']:.3f} s", flush=True)
     return out
 
 
@@ -4779,6 +5050,8 @@ def main(argv=None):
         t0 = time.perf_counter()
         summary_21 = S["phase21"] = {"twins": examples_phase(
             torch, kernels, by_path)}
+        summary_21.update(twin_figures(summary_21["twins"]))
+        summary_21["overlap_trace"] = overlap_trace(torch)
         summary_21["seconds"] = time.perf_counter() - t0
         print(json.dumps({"phase21": summary_21}))
         phase("the twins of the example scripts", t0)

@@ -866,6 +866,50 @@ def spmv(A: DeviceParCSR, x: torch.Tensor, T=None) -> torch.Tensor:
                                     hv, A.rows_pad)
 
 
+# the side stream of each card that ``spmv_overlap`` runs the exchange on
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device: torch.device):
+    stream = _SIDE_STREAMS.get(device)
+    if stream is None:
+        stream = _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return stream
+
+
+def spmv_overlap(A: DeviceParCSR, x: torch.Tensor, T=None) -> torch.Tensor:
+    """``spmv(A, x)`` with the halo exchange overlapped with the on-block
+    product, the order XLA's scheduler gives the JAX package's
+    ``spmv_shard`` (par_spmv.cpp's Isend / Irecv, local product, Waitall).
+
+    On the card the exchange (gather, transpose, gather) runs on a side
+    stream, made once per device, which first waits on an event recorded
+    on the current stream (so ``x`` is ready); ``on_spmv`` runs on the
+    current stream, which waits on the side stream's event before the
+    off-block product. The same kernels sum in the same order as
+    ``spmv``, so the result is bit-equal to it. On CPU tensors it is
+    ``spmv``'s order. The exchange across controllers (``A.comm``) and the
+    topology-aware one (``T``) are not overlapped: both raise."""
+    if A.comm is not None or T is not None:
+        raise NotImplementedError(
+            "spmv_overlap: the exchange across controllers and the "
+            "topology-aware exchange are not overlapped; use spmv")
+    if x.device.type != "cuda":
+        return spmv(A, x)
+    main = torch.cuda.current_stream(x.device)
+    side = _side_stream(x.device)
+    side.wait_event(main.record_event())
+    with torch.cuda.stream(side):
+        hv = halo_exchange(A, x)
+        done = side.record_event()
+    b = on_spmv(A, x)
+    main.wait_event(done)
+    # the halo was allocated on the side stream: keep its block from the
+    # next exchange until the off-block product has read it
+    hv.record_stream(main)
+    return b + off_spmv(A.off_rows, A.off_cols, A.off_vals, hv, A.rows_pad)
+
+
 def spmv_T(A: DeviceParCSR, x: torch.Tensor, T=None) -> torch.Tensor:
     """b = A^T x; x [S, R] local rows -> b [S, C] local cols
     (par_spmv.cpp:157-209), the halo contributions summed back through

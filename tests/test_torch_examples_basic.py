@@ -29,7 +29,10 @@ TWINS = ("example", "coo_csr_example", "matop_example", "benchmark_amg",
          "benchmark_solve", "benchmark_sa", "benchmark_setup_sweeps",
          "benchmark_bsr_amg", "benchmark_setup", "benchmark_spgemm",
          "benchmark_spmv", "benchmark_tap_spmv", "benchmark_tap_amg",
-         "model_tap_steps", "profile_comm_levels", "run_multiproc_setup")
+         "model_tap_steps", "profile_comm_levels", "run_multiproc_setup",
+         "benchmark_reader", "benchmark_nek5000", "benchmark_tap_setup",
+         "benchmark_setup_engines", "benchmark_transfer_formats",
+         "benchmark_spmv_sweep", "benchmark_spmv_overlap")
 LAUNCH_LINE = "kernel launches: "
 
 
