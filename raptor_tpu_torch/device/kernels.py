@@ -64,6 +64,7 @@ import torch
 import torch.nn.functional as F
 
 from raptor_tpu_torch.device import formats
+from raptor_tpu_torch.profiling.timers import BUILDS
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -131,34 +132,39 @@ def build() -> None:
     """Compile every kernel whose library is missing or older than its
     source: one ``nvcc`` per source, all running at once. Each compiles to
     a temporary file renamed into place, so a concurrent loader never sees
-    half a library. Raises with the compiler's output on failure."""
+    half a library. Raises with the compiler's output on failure. A build
+    is the phase "kernels.build" of ``profiling.timers.BUILDS`` (the span
+    ``raptor.kernels.build``), each nvcc run one of its ``builds``."""
     with _lock:
         stale = [n for n, src in SOURCES.items()
                  if not _so(n).exists()
                  or _so(n).stat().st_mtime < src.stat().st_mtime]
         if not stale:
             return
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cc = nvcc()
-        jobs = []
-        for name in stale:
-            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-            os.close(fd)
-            proc = subprocess.Popen(
-                [cc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            jobs.append((name, tmp, proc))
-        errors = []
-        for name, tmp, proc in jobs:
-            log, _ = proc.communicate()
-            if proc.returncode == 0:
-                os.replace(tmp, _so(name))
-            else:
-                os.unlink(tmp)
-                errors.append(f"nvcc {SOURCES[name].name} failed "
-                              f"(rc {proc.returncode}):\n{log}")
-        if errors:
-            raise RuntimeError("\n".join(errors))
+        with BUILDS.phase("kernels.build"):
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            cc = nvcc()
+            jobs = []
+            for name in stale:
+                fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+                os.close(fd)
+                proc = subprocess.Popen(
+                    [cc, *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                    text=True)
+                jobs.append((name, tmp, proc))
+                BUILDS.tally("builds")
+            errors = []
+            for name, tmp, proc in jobs:
+                log, _ = proc.communicate()
+                if proc.returncode == 0:
+                    os.replace(tmp, _so(name))
+                else:
+                    os.unlink(tmp)
+                    errors.append(f"nvcc {SOURCES[name].name} failed "
+                                  f"(rc {proc.returncode}):\n{log}")
+            if errors:
+                raise RuntimeError("\n".join(errors))
 
 
 def _lib(name: str):

@@ -71,6 +71,7 @@ from raptor_tpu_torch.device.formats import (
     ell_boundary_arrays, ell_spmv, ell_spmv_T, off_spmv, off_spmv_T,
     select_planes, swellt_arrays, swellt_counts, swellt_spmv, swellt_stats,
     well_slices, wind_ell_arrays, wind_ell_cols, wind_ell_stats)
+from raptor_tpu_torch.profiling.timers import nested_phase
 
 MAX_DIA_OFFSETS = 64
 MAX_BDIA_PLANES = 1024
@@ -650,41 +651,44 @@ def device_put_matrix(a: ParCSRMatrix, dtype=torch.float64,
         return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dt)
 
     lng = torch.int64
-    return DeviceParCSR(
-        # the well/wellt kernels read their int32 layouts as they are
-        on_cols=put(on_cols, None if fmt in ("well", "wellt") else lng),
-        on_vals=put(on_vals),
-        off_rows=put(off_rows, lng), off_cols=put(off_cols, lng),
-        off_vals=put(off_vals),
-        dia_vals=put(dia_vals),
-        dia_off=put(np.asarray(dia_offsets, dtype=np.int32)),
-        bd_idx=put(bd_idx), bd_vals=put(bd_vals),
-        bd_off=put(np.asarray(bd_offsets, dtype=np.int32)),
-        bd_tptr=put(bd_tptr), bd_tplane=put(bd_tplane),
-        bl_src=put(bl_src), bl_idx=put(bl_idx), bl_vals=put(bl_vals),
-        bl_cnt=put(bl_cnt),
-        rest_rows=put(rest_rows, lng), rest_cols=put(rest_cols, lng),
-        rest_vals=put(rest_vals),
-        emb_idx=put(emb_idx, lng), emb_mask=put(emb_mask.astype(npdt)),
-        wl_ws=put(wl_ws), wl_jlo=put(wl_jlo), wl_jhi=put(wl_jhi),
-        wl_cnt=put(wl_cnt), wl_perm=put(wl_perm), wl_sptr=put(wl_sptr),
-        wl_crel=put(wl_crel), wl_cvals=put(wl_cvals),
-        send_idx=put(plan.send_idx, lng),
-        send_mask=put(plan.send_mask.astype(npdt)),
-        halo_src=put(plan.halo_src, lng),
-        slot_to_halo=put(plan.slot_to_halo, lng),
-        recv_mask=put(plan.recv_mask.astype(npdt)),
-        row_mask=put(row_mask),
-        rows_pad=R, cols_pad=C, halo_pad=plan.halo_pad,
-        dia_pad=dia_pad, dia_offsets=dia_offsets,
-        bd_offsets=bd_offsets, bd_padb=bd_padb, bd_ba=bd_ba,
-        wl_wr=wl_wr, wl_ba=wl_ba,
-        on_format=fmt, embed_kind=embed_kind, on_rows_pad=fmt_R,
-        has_t=not (fmt in ("bdia", "bell") and not need_transpose),
-        global_num_rows=part.global_num_rows,
-        global_num_cols=part.global_num_cols,
-        comm=comm,
-    )
+    # the host-to-card copies: a phase "copy" of the packing's Profiler
+    # (``DeviceHierarchy.pack_times``) where one is open
+    with nested_phase("copy"):
+        return DeviceParCSR(
+            # the well/wellt kernels read their int32 layouts as they are
+            on_cols=put(on_cols, None if fmt in ("well", "wellt") else lng),
+            on_vals=put(on_vals),
+            off_rows=put(off_rows, lng), off_cols=put(off_cols, lng),
+            off_vals=put(off_vals),
+            dia_vals=put(dia_vals),
+            dia_off=put(np.asarray(dia_offsets, dtype=np.int32)),
+            bd_idx=put(bd_idx), bd_vals=put(bd_vals),
+            bd_off=put(np.asarray(bd_offsets, dtype=np.int32)),
+            bd_tptr=put(bd_tptr), bd_tplane=put(bd_tplane),
+            bl_src=put(bl_src), bl_idx=put(bl_idx), bl_vals=put(bl_vals),
+            bl_cnt=put(bl_cnt),
+            rest_rows=put(rest_rows, lng), rest_cols=put(rest_cols, lng),
+            rest_vals=put(rest_vals),
+            emb_idx=put(emb_idx, lng), emb_mask=put(emb_mask.astype(npdt)),
+            wl_ws=put(wl_ws), wl_jlo=put(wl_jlo), wl_jhi=put(wl_jhi),
+            wl_cnt=put(wl_cnt), wl_perm=put(wl_perm), wl_sptr=put(wl_sptr),
+            wl_crel=put(wl_crel), wl_cvals=put(wl_cvals),
+            send_idx=put(plan.send_idx, lng),
+            send_mask=put(plan.send_mask.astype(npdt)),
+            halo_src=put(plan.halo_src, lng),
+            slot_to_halo=put(plan.slot_to_halo, lng),
+            recv_mask=put(plan.recv_mask.astype(npdt)),
+            row_mask=put(row_mask),
+            rows_pad=R, cols_pad=C, halo_pad=plan.halo_pad,
+            dia_pad=dia_pad, dia_offsets=dia_offsets,
+            bd_offsets=bd_offsets, bd_padb=bd_padb, bd_ba=bd_ba,
+            wl_wr=wl_wr, wl_ba=wl_ba,
+            on_format=fmt, embed_kind=embed_kind, on_rows_pad=fmt_R,
+            has_t=not (fmt in ("bdia", "bell") and not need_transpose),
+            global_num_rows=part.global_num_rows,
+            global_num_cols=part.global_num_cols,
+            comm=comm,
+        )
 
 
 # --- vectors -----------------------------------------------------------------

@@ -43,6 +43,7 @@ from raptor_tpu_torch.core.par_matrix import ParCSRMatrix
 from raptor_tpu_torch.core.types import ZERO_TOL
 from raptor_tpu_torch.device.formats import ell_arrays, ell_spmv, off_spmv
 from raptor_tpu_torch.device.par import DeviceParCSR, _gall, halo, on_spmv
+from raptor_tpu_torch.profiling.timers import nested_phase
 
 
 def _split_ldu(a: CSRMatrix) -> Tuple[np.ndarray, CSRMatrix, CSRMatrix]:
@@ -292,23 +293,28 @@ def build_relax(a: ParCSRMatrix, dA: DeviceParCSR,
     def put_idx(x):
         return torch.from_numpy(x.astype(np.int64)).to(dA.device)
 
-    inv_diag, has_diag = put(1.0 / diag_a), put(has)
-    fwd = (put_idx(f_rows), put(f_mask), put_idx(f_cols), put(f_vals))
-    bwd = (put_idx(b_rows), put(b_mask), put_idx(b_cols), put(b_vals))
-    color = put(color_mask)
-    return DeviceRelax(
-        diag=put(diag_a), inv_diag=inv_diag, has_diag=has_diag,
-        inv_l1_diag=put(1.0 / l1),
-        u_cols=put_idx(u_cols), u_vals=put(u_vals),
-        l_cols=put_idx(l_cols), l_vals=put(l_vals),
-        fwd_rows=fwd[0], fwd_mask=fwd[1], fwd_cols=fwd[2], fwd_vals=fwd[3],
-        bwd_rows=bwd[0], bwd_mask=bwd[1], bwd_cols=bwd[2], bwd_vals=bwd[3],
-        color_mask=color, n_fwd_levels=NLf, n_bwd_levels=NLb, n_colors=NC,
-        cheb_lo=cheb_lo, cheb_hi=cheb_hi,
-        fwd=_sweep(*fwd, inv_diag, has_diag),
-        bwd=_sweep(*bwd, inv_diag, has_diag),
-        color_ok=(color * has_diag[:, None, :] > 0).transpose(0, 1)
-        .contiguous())
+    # the host-to-card copies: a phase "copy" of the packing's Profiler
+    # (``DeviceHierarchy.pack_times``) where one is open
+    with nested_phase("copy"):
+        inv_diag, has_diag = put(1.0 / diag_a), put(has)
+        fwd = (put_idx(f_rows), put(f_mask), put_idx(f_cols), put(f_vals))
+        bwd = (put_idx(b_rows), put(b_mask), put_idx(b_cols), put(b_vals))
+        color = put(color_mask)
+        return DeviceRelax(
+            diag=put(diag_a), inv_diag=inv_diag, has_diag=has_diag,
+            inv_l1_diag=put(1.0 / l1),
+            u_cols=put_idx(u_cols), u_vals=put(u_vals),
+            l_cols=put_idx(l_cols), l_vals=put(l_vals),
+            fwd_rows=fwd[0], fwd_mask=fwd[1], fwd_cols=fwd[2],
+            fwd_vals=fwd[3],
+            bwd_rows=bwd[0], bwd_mask=bwd[1], bwd_cols=bwd[2],
+            bwd_vals=bwd[3],
+            color_mask=color, n_fwd_levels=NLf, n_bwd_levels=NLb,
+            n_colors=NC, cheb_lo=cheb_lo, cheb_hi=cheb_hi,
+            fwd=_sweep(*fwd, inv_diag, has_diag),
+            bwd=_sweep(*bwd, inv_diag, has_diag),
+            color_ok=(color * has_diag[:, None, :] > 0).transpose(0, 1)
+            .contiguous())
 
 
 # --- smoothers over stacked shards ----------------------------------------------

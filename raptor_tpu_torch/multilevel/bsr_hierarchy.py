@@ -132,7 +132,7 @@ def bsr_extend_distributed(a: ParCSRMatrix, b: int, weights: np.ndarray,
                              StrengthType.Symmetric):
         raise NotImplementedError(
             f"distributed blocked setup: strength_type {strength_type}")
-    timers = timers or Profiler()
+    timers = timers or Profiler("raptor.setup.")
     part = a.partition
     S = part.n_shards
     fs = a.first_shard
@@ -435,7 +435,7 @@ class BSRDeviceHierarchy:
         # host seconds of the packing: the blocked operators with their
         # inverted diagonal blocks, the nodal transfers, the Chebyshev
         # intervals
-        self.pack_times = Profiler()
+        self.pack_times = Profiler("raptor.pack.")
         put = dict(dtype=dtype, lane_pad=lane_pad, need_transpose=False,
                    device=self.device)
 

@@ -33,6 +33,7 @@ only; its ``precond_pack`` serves the Krylov solvers across controllers.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import List, Optional, Tuple
 
@@ -49,7 +50,9 @@ from raptor_tpu_torch.device.par import (
     DeviceParCSR, bdia_tile_share, device_put_matrix, spmv)
 from raptor_tpu_torch.device.relax import RELAX_FNS, DeviceRelax, build_relax
 from raptor_tpu_torch.multilevel.par_multilevel import ParMultilevel
-from raptor_tpu_torch.profiling.timers import interleaved_seconds, rescale
+from raptor_tpu_torch.profiling.timers import (
+    Profiler, count, interleaved_seconds, rescale, solve_span, span,
+    sync_span)
 from raptor_tpu_torch.ruge_stuben import par_setup as ps
 
 RELAX_NAME = {RelaxType.Jacobi: "jacobi", RelaxType.SOR: "sor",
@@ -60,6 +63,20 @@ RELAX_NAME = {RelaxType.Jacobi: "jacobi", RelaxType.SOR: "sor",
 RELAX_NEED = {"jacobi": ("tri",), "sor": ("tri",), "ssor": ("tri",),
               "mc_sor": ("color",), "mc_ssor": ("color",),
               "l1_jacobi": (), "chebyshev": ()}
+
+# the spans of the solves and of the cycle's steps (profiling.timers); a
+# step's level is that of the ``DeviceLevel.span`` it lies in
+RESIDUAL = "raptor.refine.residual"     # solve_mixed's float64 residual
+PRE, POST = "raptor.relax.pre", "raptor.relax.post"
+CYCLE_RESIDUAL = "raptor.residual"
+RESTRICT, PROLONG = "raptor.restrict", "raptor.prolong"
+COARSE = "raptor.coarse_solve"
+
+
+def host_scalar(t: torch.Tensor) -> float:
+    """A device scalar read on the host (``profiling.timers.sync_span``)."""
+    with sync_span():
+        return float(t)
 
 
 @dataclasses.dataclass
@@ -73,6 +90,9 @@ class DeviceLevel:
     TA: Optional[DeviceTAP] = None
     TP: Optional[DeviceTAP] = None
     TPt: Optional[DeviceTAP] = None
+    # the name of the level's V-cycle span, raptor.vcycle.L<level>, built
+    # once when the level is packed
+    span: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -140,35 +160,40 @@ class DeviceHierarchy:
                                   self.device)
 
         levels: List[DeviceLevel] = []
+        self.pack_level_times = [{} for _ in ml.levels]
         for i, lvl in enumerate(ml.levels):
             tap_level = 0 <= self.tap_amg <= i
-            dA = device_put_matrix(lvl.A, **put)
-            dP = dPt = TP = TPt = None
-            if lvl.P is not None:
-                # the coarse axis embedded at fine-aligned anchors, so the
-                # transfer operators format as DIA/BDIA
-                pt = lvl.P.transpose()
-                dP = device_put_matrix(lvl.P, embed="cols", **put)
-                dPt = device_put_matrix(pt, embed="rows", **put)
-                if tap_level:
-                    TP, TPt = tap(lvl.P), tap(pt)
-            dRX = build_relax(lvl.A, dA, need=RELAX_NEED[self.relax_kind])
-            levels.append(DeviceLevel(dA, dRX, dP, dPt,
-                                      tap(lvl.A) if tap_level else None,
-                                      TP, TPt))
+            with self._packing(i, "format"):
+                dA = device_put_matrix(lvl.A, **put)
+                dP = dPt = TP = TPt = None
+                if lvl.P is not None:
+                    # the coarse axis embedded at fine-aligned anchors, so
+                    # the transfer operators format as DIA/BDIA
+                    pt = lvl.P.transpose()
+                    dP = device_put_matrix(lvl.P, embed="cols", **put)
+                    dPt = device_put_matrix(pt, embed="rows", **put)
+                    if tap_level:
+                        TP, TPt = tap(lvl.P), tap(pt)
+                TA = tap(lvl.A) if tap_level else None
+            with self._packing(i, "relax"):
+                dRX = build_relax(lvl.A, dA,
+                                  need=RELAX_NEED[self.relax_kind])
+            levels.append(DeviceLevel(dA, dRX, dP, dPt, TA, TP, TPt,
+                                      f"raptor.vcycle.L{i}"))
         self.levels: Tuple[DeviceLevel, ...] = tuple(levels)
 
         # dense coarse LU: scipy's 0-based pivots are sequential row swaps,
         # which LAPACK (and torch.linalg.lu_solve) number from 1
-        lu, piv = ml.coarse_lu
-        self.lu = torch.from_numpy(np.asarray(lu)).to(self.device, dtype)
-        self.piv = torch.from_numpy(
-            np.asarray(piv, dtype=np.int32) + 1).to(self.device)
-        part_c = ml.levels[-1].A.partition
-        gather_idx, coarse_take = _coarse_plumbing(
-            part_c, self.levels[-1].A.rows_pad, 0, part_c.n_shards)
-        self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
-        self.coarse_take = torch.from_numpy(coarse_take).to(self.device)
+        with self._packing(len(levels) - 1, "coarse_lu"):
+            lu, piv = ml.coarse_lu
+            self.lu = torch.from_numpy(np.asarray(lu)).to(self.device, dtype)
+            self.piv = torch.from_numpy(
+                np.asarray(piv, dtype=np.int32) + 1).to(self.device)
+            part_c = ml.levels[-1].A.partition
+            gather_idx, coarse_take = _coarse_plumbing(
+                part_c, self.levels[-1].A.rows_pad, 0, part_c.n_shards)
+            self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
+            self.coarse_take = torch.from_numpy(coarse_take).to(self.device)
 
         self.row_bounds = ml.levels[0].A.partition.row_bounds
         self.rows_pad = self.levels[0].A.rows_pad
@@ -213,6 +238,28 @@ class DeviceHierarchy:
         self.stall_run = 4
         self._dA64 = None
         self._precond = None
+        # host seconds of the packing (always on, as ``ml.setup_times``):
+        # "format" (the host side of device_put_matrix: comm plan, format
+        # choice, layout arrays, embeddings; the P^T transpose), "relax"
+        # (build_relax, its Chebyshev bounds), "coarse_lu", and "copy"
+        # (the host-to-card copies), nested in the first two and left out
+        # of their ``own``; the split of each level is in
+        # ``pack_level_times``, the float64 fine operator of solve_mixed in
+        # level 0's
+        self.pack_times = Profiler("raptor.pack.")
+        self.pack_level_times: List[dict] = []
+
+    @contextlib.contextmanager
+    def _packing(self, level: int, phase: str):
+        """Pack phase ``phase`` of level ``level``: the seconds each phase
+        gains in the block are added to the level's split."""
+        before = dict(self.pack_times.times)
+        with self.pack_times.phase(phase):
+            yield
+        split = self.pack_level_times[level]
+        for k, v in self.pack_times.times.items():
+            if v > before.get(k, 0.0):
+                split[k] = split.get(k, 0.0) + v - before.get(k, 0.0)
 
     # --- SPMD bridge: per-rank hierarchy -> device solve ---------------------
     @classmethod
@@ -268,48 +315,54 @@ class DeviceHierarchy:
                                   n_local=len(m.shards()), comm=comm)
 
         levels: List[DeviceLevel] = []
+        self.pack_level_times = [{} for _ in hier.levels]
         for i, lvl in enumerate(hier.levels):
             a = lvl.a_local
-            tr = make_transport(a)
             tap_level = 0 <= tap_amg <= i
-            dA = put(a, tr)
-            dP = dPt = TP = TPt = None
-            if lvl.p_blocks is not None:
-                part = a.partition
-                cb = hier.levels[i + 1].a_local.partition.row_bounds
-                part_p = Partition(part.global_num_rows, int(cb[-1]),
-                                   part.n_shards, part.row_bounds, cb)
-                p_par = ParCSRMatrix.from_local_rows(
-                    lvl.p_blocks, part_p, first_shard=a.first_shard)
-                tr_p = make_transport(p_par)
-                pt_par = ParCSRMatrix.from_local_rows(
-                    ps.dist_transpose(p_par, tr=tr_p, assemble=False),
-                    part_p.transpose(), first_shard=a.first_shard)
-                tr_pt = make_transport(pt_par)
-                dP = put(p_par, tr_p, embed="cols")
-                dPt = put(pt_par, tr_pt, embed="rows")
-                if tap_level:
-                    TP, TPt = tap_put(p_par, tr_p), tap_put(pt_par, tr_pt)
-            dRX = build_relax(a, dA, need=RELAX_NEED[self.relax_kind],
-                              tr=tr)
-            levels.append(DeviceLevel(dA, dRX, dP, dPt,
-                                      tap_put(a, tr) if tap_level else None,
-                                      TP, TPt))
+            with self._packing(i, "format"):
+                tr = make_transport(a)
+                dA = put(a, tr)
+                dP = dPt = TP = TPt = None
+                if lvl.p_blocks is not None:
+                    part = a.partition
+                    cb = hier.levels[i + 1].a_local.partition.row_bounds
+                    part_p = Partition(part.global_num_rows, int(cb[-1]),
+                                       part.n_shards, part.row_bounds, cb)
+                    p_par = ParCSRMatrix.from_local_rows(
+                        lvl.p_blocks, part_p, first_shard=a.first_shard)
+                    tr_p = make_transport(p_par)
+                    pt_par = ParCSRMatrix.from_local_rows(
+                        ps.dist_transpose(p_par, tr=tr_p, assemble=False),
+                        part_p.transpose(), first_shard=a.first_shard)
+                    tr_pt = make_transport(pt_par)
+                    dP = put(p_par, tr_p, embed="cols")
+                    dPt = put(pt_par, tr_pt, embed="rows")
+                    if tap_level:
+                        TP = tap_put(p_par, tr_p)
+                        TPt = tap_put(pt_par, tr_pt)
+            with self._packing(i, "relax"):
+                dRX = build_relax(a, dA, need=RELAX_NEED[self.relax_kind],
+                                  tr=tr)
+            with self._packing(i, "format"):
+                TA = tap_put(a, tr) if tap_level else None
+            levels.append(DeviceLevel(dA, dRX, dP, dPt, TA, TP, TPt,
+                                      f"raptor.vcycle.L{i}"))
         self.levels = tuple(levels)
 
-        lu, piv = hier.coarse_lu
-        self.lu = dpar.put_replicated(np.asarray(lu), self.device, dtype)
-        self.piv = dpar.put_replicated(np.asarray(piv, dtype=np.int32) + 1,
-                                       self.device)
-        a_c = hier.levels[-1].a_local
-        part_c = a_c.partition
-        gather_idx, coarse_take = _coarse_plumbing(
-            part_c, self.levels[-1].A.rows_pad, a_c.first_shard,
-            len(a_c.shards()))
-        self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
-        self.coarse_take = dpar.put_stacked(
-            {"coarse_take": coarse_take}, part_c.n_shards, self.device,
-            first_shard=a_c.first_shard)["coarse_take"]
+        with self._packing(len(levels) - 1, "coarse_lu"):
+            lu, piv = hier.coarse_lu
+            self.lu = dpar.put_replicated(np.asarray(lu), self.device, dtype)
+            self.piv = dpar.put_replicated(
+                np.asarray(piv, dtype=np.int32) + 1, self.device)
+            a_c = hier.levels[-1].a_local
+            part_c = a_c.partition
+            gather_idx, coarse_take = _coarse_plumbing(
+                part_c, self.levels[-1].A.rows_pad, a_c.first_shard,
+                len(a_c.shards()))
+            self.gather_idx = torch.from_numpy(gather_idx).to(self.device)
+            self.coarse_take = dpar.put_stacked(
+                {"coarse_take": coarse_take}, part_c.n_shards, self.device,
+                first_shard=a_c.first_shard)["coarse_take"]
 
         self.row_bounds = self._fine_A.partition.row_bounds
         self.rows_pad = self.levels[0].A.rows_pad
@@ -360,47 +413,60 @@ class DeviceHierarchy:
         """One V-cycle on stacked shard vectors (par_multilevel.hpp:
         335-459)."""
         lvl = self.levels[level]
-        if level == len(self.levels) - 1:
-            return self.coarse_solve(lvl.A.row_mask, b)
-        x = self.relax(lvl, x, b)
-        r = b - spmv(lvl.A, x, lvl.TA)
-        bc = spmv(lvl.Pt, r, lvl.TPt)           # restriction
-        xc = torch.zeros((bc.shape[0], lvl.Pt.rows_pad), dtype=b.dtype,
-                         device=b.device)
-        xc = self.vcycle(xc, bc, level + 1)
-        x = x + spmv(lvl.P, xc, lvl.TP)         # prolongation
-        return self.relax(lvl, x, b)
+        if level == 0:
+            count("cycles")
+        with span(lvl.span):
+            if level == len(self.levels) - 1:
+                with span(COARSE):
+                    return self.coarse_solve(lvl.A.row_mask, b)
+            with span(PRE):
+                x = self.relax(lvl, x, b)
+            with span(CYCLE_RESIDUAL):
+                r = b - spmv(lvl.A, x, lvl.TA)
+            with span(RESTRICT):
+                bc = spmv(lvl.Pt, r, lvl.TPt)
+                xc = torch.zeros((bc.shape[0], lvl.Pt.rows_pad),
+                                 dtype=b.dtype, device=b.device)
+            xc = self.vcycle(xc, bc, level + 1)
+            with span(PROLONG):
+                x = x + spmv(lvl.P, xc, lvl.TP)
+            with span(POST):
+                return self.relax(lvl, x, b)
 
     # --- solves ----------------------------------------------------------------
     def solve(self, x: torch.Tensor, b: torch.Tensor) -> SolveResult:
         """Iterated V-cycles to ``solve_tol`` (par_multilevel.hpp:461-540);
         x, b: stacked [S, R] device vectors (see ``vector``)."""
-        A0, T0 = self.levels[0].A, self.levels[0].TA
-        max_iter = self.max_iterations
-        b_norm = float(dpar.norm(b, self.comm))
+        with solve_span("raptor.solve"):
+            A0, T0 = self.levels[0].A, self.levels[0].TA
+            max_iter = self.max_iterations
+            b_norm = host_scalar(dpar.norm(b, self.comm))
 
-        def rel_norm(r):
-            n = float(dpar.norm(r, self.comm))
-            return n / b_norm if abs(b_norm) > 1e-16 else n
+            def rel_norm(x):
+                with span(CYCLE_RESIDUAL):
+                    r = b - spmv(A0, x, T0)
+                n = host_scalar(dpar.norm(r, self.comm))
+                return n / b_norm if abs(b_norm) > 1e-16 else n
 
-        stall_ratio = float(self.stall_ratio)
-        stall_run = int(self.stall_run)
-        if stall_run <= 0:
-            stall_run = max_iter + 1        # never trips
+            stall_ratio = float(self.stall_ratio)
+            stall_run = int(self.stall_run)
+            if stall_run <= 0:
+                stall_run = max_iter + 1        # never trips
 
-        r_norm = rel_norm(b - spmv(A0, x, T0))
-        res = np.full(max_iter + 1, -1.0)
-        res[0] = r_norm
-        k = run = 0
-        while r_norm > self.solve_tol and k < max_iter and run < stall_run:
-            x = self.vcycle(x, b)
-            new_norm = rel_norm(b - spmv(A0, x, T0))
-            run = run + 1 if new_norm > stall_ratio * r_norm else 0
-            r_norm = new_norm
-            k += 1
-            res[k] = r_norm
-        return SolveResult(x, res, k,
-                           run >= stall_run and r_norm > self.solve_tol)
+            r_norm = rel_norm(x)
+            res = np.full(max_iter + 1, -1.0)
+            res[0] = r_norm
+            k = run = 0
+            while (r_norm > self.solve_tol and k < max_iter
+                   and run < stall_run):
+                x = self.vcycle(x, b)
+                new_norm = rel_norm(x)
+                run = run + 1 if new_norm > stall_ratio * r_norm else 0
+                r_norm = new_norm
+                k += 1
+                res[k] = r_norm
+            return SolveResult(x, res, k,
+                               run >= stall_run and r_norm > self.solve_tol)
 
     def solve_mixed(self, x64: np.ndarray, b64: np.ndarray,
                     tol: float = 1e-7, max_iter: int = 100,
@@ -412,34 +478,38 @@ class DeviceHierarchy:
 
         Returns (x, residual history): x as a float64 host vector, or as
         the stacked device tensor when ``return_device``."""
-        if self._dA64 is None:
-            a = self._fine_A
-            self._dA64 = device_put_matrix(
-                a, dtype=torch.float64, lane_pad=self.lane_pad,
-                need_transpose=False, device=self.device,
-                tr=self._tr_factory(a) if self._tr_factory else None,
-                comm=self.comm)
-        dA64 = self._dA64
+        with solve_span("raptor.solve_mixed"):
+            if self._dA64 is None:
+                a = self._fine_A
+                with self._packing(0, "format"):
+                    self._dA64 = device_put_matrix(
+                        a, dtype=torch.float64, lane_pad=self.lane_pad,
+                        need_transpose=False, device=self.device,
+                        tr=self._tr_factory(a) if self._tr_factory
+                        else None, comm=self.comm)
+            dA64 = self._dA64
 
-        def vec(v):
-            return self._put(np.asarray(v, np.float64), dA64.rows_pad,
-                             torch.float64)
+            def vec(v):
+                return self._put(np.asarray(v, np.float64), dA64.rows_pad,
+                                 torch.float64)
 
-        x, b = vec(x64), vec(b64)
-        b_norm = float(dpar.norm(b, self.comm))
-        b_norm = b_norm if b_norm > 1e-300 else 1.0
-        r = b - spmv(dA64, x)
-        hist = [float(dpar.norm(r, self.comm)) / b_norm]
-        while hist[-1] > tol and len(hist) <= max_iter:
-            e = self.vcycle(torch.zeros_like(r, dtype=self.dtype),
-                            r.to(self.dtype))
-            x = x + e.to(torch.float64)
-            r = b - spmv(dA64, x)
-            hist.append(float(dpar.norm(r, self.comm)) / b_norm)
-        hist = np.asarray(hist)
-        if return_device:
-            return x, hist
-        return self.host(x), hist
+            x, b = vec(x64), vec(b64)
+            b_norm = host_scalar(dpar.norm(b, self.comm))
+            b_norm = b_norm if b_norm > 1e-300 else 1.0
+            with span(RESIDUAL):
+                r = b - spmv(dA64, x)
+            hist = [host_scalar(dpar.norm(r, self.comm)) / b_norm]
+            while hist[-1] > tol and len(hist) <= max_iter:
+                e = self.vcycle(torch.zeros_like(r, dtype=self.dtype),
+                                r.to(self.dtype))
+                x = x + e.to(torch.float64)
+                with span(RESIDUAL):
+                    r = b - spmv(dA64, x)
+                hist.append(host_scalar(dpar.norm(r, self.comm)) / b_norm)
+            hist = np.asarray(hist)
+            if return_device:
+                return x, hist
+            return self.host(x), hist
 
     # --- per-level timing (track_times, par_multilevel.hpp:127-205) --------
     def profile_cycle(self, reps: int = 50) -> List[dict]:
@@ -506,10 +576,11 @@ class DeviceHierarchy:
 
     # --- vector helpers ---------------------------------------------------------
     def _put(self, v: np.ndarray, pad: int, dtype) -> torch.Tensor:
-        return dpar.device_put_vector(
-            v, self.row_bounds, pad, dtype=dtype, device=self.device,
-            first_shard=self.first_shard,
-            n_local=self.levels[0].A.n_shards)
+        with span("raptor.put"):
+            return dpar.device_put_vector(
+                v, self.row_bounds, pad, dtype=dtype, device=self.device,
+                first_shard=self.first_shard,
+                n_local=self.levels[0].A.n_shards)
 
     def vector(self, v: np.ndarray) -> torch.Tensor:
         """A host vector on the fine level's shards: every row, or this
@@ -525,5 +596,8 @@ class DeviceHierarchy:
 
     def host(self, v: torch.Tensor) -> np.ndarray:
         """The rows of a fine-level vector this device holds (every row,
-        or this controller's)."""
-        return dpar.host_vector(v, self.row_bounds, self.first_shard)
+        or this controller's): a blocking read, as the span
+        ``raptor.host`` and one of the counter ``syncs``."""
+        with span("raptor.host"):
+            count("syncs")
+            return dpar.host_vector(v, self.row_bounds, self.first_shard)

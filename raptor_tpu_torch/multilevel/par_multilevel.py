@@ -90,7 +90,7 @@ class ParMultilevel:
         # setup phase timers (the reference's track_times,
         # par_multilevel.hpp:127-205), accumulated over the levels; the
         # split of each level is in ``setup_level_times``
-        self.setup_times = Profiler()
+        self.setup_times = Profiler("raptor.setup.")
         self.setup_level_times: List[Dict[str, float]] = []
         # the setup engines: "host", "device" or "auto" (module docstring),
         # and the device a device engine runs on

@@ -48,17 +48,22 @@ _i64 = ctypes.c_int64
 
 def _build() -> None:
     """Compile into a temporary file and rename it into place, so that
-    processes building at the same time never load a half-written file."""
+    processes building at the same time never load a half-written file.
+    The build is the phase "native.build" of ``profiling.timers.BUILDS``
+    (the span ``raptor.native.build``), one of its ``builds``."""
+    from raptor_tpu_torch.profiling.timers import BUILDS
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        # -ffp-contract=off: no FMA contraction, the same arithmetic as
-        # raptor_tpu.native's build of the same source
-        r = subprocess.run(
-            ["g++", "-O3", "-march=native", "-ffp-contract=off", "-shared",
-             "-fPIC", str(SRC), "-o", tmp],
-            capture_output=True, text=True, timeout=600)
+        with BUILDS.phase("native.build"):
+            BUILDS.tally("builds")
+            # -ffp-contract=off: no FMA contraction, the same arithmetic
+            # as raptor_tpu.native's build of the same source
+            r = subprocess.run(
+                ["g++", "-O3", "-march=native", "-ffp-contract=off",
+                 "-shared", "-fPIC", str(SRC), "-o", tmp],
+                capture_output=True, text=True, timeout=600)
         if r.returncode != 0:
             raise RuntimeError(f"building {SRC} failed:\n{r.stderr}")
         os.replace(tmp, SO)
